@@ -1,0 +1,34 @@
+"""Device choice for the port's entry points."""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """The torch.device an entry point runs on. Entry points default to
+    "cuda"; without a card that raises, and the caller has to ask for the
+    CPU explicitly (device="cpu") — the port never drops to the CPU on its
+    own."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+@contextmanager
+def float32_precision(cudnn_tf32: bool):
+    """Run float32 matrix products in full float32 ("highest") and cuDNN
+    convolutions in TF32 or not, restoring the caller's settings after."""
+    old = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old[0])
+        torch.backends.cudnn.allow_tf32 = old[1]

@@ -1,0 +1,235 @@
+"""Pose-optimization stage: store -> constraints -> solver.
+
+Port of robust_cvd_tpu/pipeline/pose.py (reference
+pose_optimization.py:98-326): builds flow constraints from the result
+folder (through the corner kernel on the card), caches them in
+`flow_constraints.dat`, sets static flags and runs the LM solver.
+
+Not ported yet, and raising NotImplementedError rather than doing nothing:
+the GT-depth / COLMAP importers and `save` (video.dat) come with the
+orchestration and CLI slice; `filter_depth` and dynamic_constraints="Ransac"
+with the slice that ports the remaining processors (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import os
+from os.path import join as pjoin
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import PipelineConfig
+from ..device import resolve_device
+from ..io.store import VideoStore
+from ..solver import constraints as C
+from ..solver import pose_opt
+from ..solver.pose_opt import PoseOptInputs
+from ..solver.residuals import SolverParams
+
+
+class PoseOptimizer:
+    """(reference pose_optimization.py PoseOptimizer). Constraints are built
+    in the constructor; `device` is where the corner response and the solve
+    run ("cuda" unless the caller asks for "cpu")."""
+
+    MATCH_SEPARATION = 10  # px (reference lib/FlowConstraints.h default)
+
+    def __init__(self, cfg: PipelineConfig, store: VideoStore, depth_stream: str,
+                 device="cuda"):
+        self.cfg = cfg
+        self.store = store
+        self.depth_stream = depth_stream
+        self.device = resolve_device(device)
+        self.solver_params: Optional[SolverParams] = None
+        self.solve_log: list = []
+        self._check_external_streams()
+        self._build_constraints()
+
+    def _check_external_streams(self):
+        """GT depth/poses and COLMAP reconstructions are imported as extra
+        streams by the JAX package (reference pose_optimization.py:119-159);
+        the port has no importers yet."""
+        base = self.store.base_dir
+        if os.path.isdir(pjoin(base, "depth_gt")) or os.path.exists(
+            pjoin(base, "colmap_dense", "metadata.npz")
+        ):
+            raise NotImplementedError(
+                "importing GT depth / COLMAP streams is not ported yet "
+                "(orchestration and CLI slice)"
+            )
+
+    def filter_depth(self, radius: int):
+        raise NotImplementedError(
+            "the flow-guided depth filter is not ported yet (processor slice)"
+        )
+
+    def save(self):
+        raise NotImplementedError(
+            "writing video.dat is not ported yet (orchestration and CLI slice)"
+        )
+
+    # -- constraint construction (reference lib/FlowConstraints.cpp) --------
+
+    def _build_constraints(self):
+        store = self.store
+        opt = self.cfg.opt
+        if opt.dynamic_constraints == "Ransac":
+            raise NotImplementedError(
+                "dynamic_constraints='Ransac' is not ported yet (processor slice)"
+            )
+        flow_list = store.load_flow_list()
+        # FrameRange windows the constraint set (reference
+        # pose_optimization.py:167, FlowConstraints.cpp:49-84)
+        frame_set = set(self.cfg.resolved_frame_range(store.num_frames).frames())
+        pair_keys = sorted(
+            {(i, j) for (i, j, _) in flow_list if i in frame_set and j in frame_set}
+        )
+        triplet_keys = [
+            t
+            for t in sorted(frame_set)
+            if (t - 1) in frame_set
+            and (t + 1) in frame_set
+            and self._has_flow(t, t - 1)
+            and self._has_flow(t, t + 1)
+        ]
+
+        pairs, triplets = self._load_constraint_cache(pair_keys, triplet_keys)
+        if pairs is None:
+            pairs, triplets = self._compute_constraints(pair_keys, triplet_keys)
+            self._save_constraint_cache(pairs, triplets)
+
+        # static flags (reference pose_optimization.py:170-175); "None"
+        # leaves everything static
+        if opt.dynamic_constraints == "Mask":
+            dyn = store.load_dynamic_mask()
+            dyn_dist = (
+                np.stack([C.dynamic_distance(m, m.shape) for m in dyn])
+                if dyn is not None
+                else None
+            )
+            C.set_static_flags(
+                pair_keys, pairs, triplet_keys, triplets, dyn_dist,
+                min_dynamic_distance=8.0,
+            )
+
+        self.pair_keys = pair_keys
+        self.pairs = pairs
+        self.triplet_keys = triplet_keys
+        self.triplets = triplets
+
+    def _has_flow(self, i, j):
+        return os.path.exists(
+            pjoin(self.store.base_dir, "flow", f"flow_{i:06d}_{j:06d}.raw")
+        )
+
+    def _compute_constraints(self, pair_keys, triplet_keys):
+        store = self.store
+        gray = torch.from_numpy(C.rgb_to_gray(store.load_color_down()))
+        corner = C.corner_min_eigenval(gray.to(self.device)).cpu().numpy()
+
+        inv_aspect = store.inv_aspect
+        pairs: Dict[Tuple[int, int], C.PairConstraints] = {}
+        for (i, j) in pair_keys:
+            pairs[(i, j)] = C.build_pair_constraints(
+                corner[i], store.load_flow(i, j), store.load_flow_mask(i, j),
+                inv_aspect, match_separation=self.MATCH_SEPARATION,
+            )
+        triplets: Dict[int, C.TripletConstraints] = {}
+        for t in triplet_keys:
+            triplets[t] = C.build_triplet_constraints(
+                corner[t],
+                store.load_flow(t, t - 1), store.load_flow_mask(t, t - 1),
+                store.load_flow(t, t + 1), store.load_flow_mask(t, t + 1),
+                inv_aspect, match_separation=self.MATCH_SEPARATION,
+            )
+        return pairs, triplets
+
+    # -- flow_constraints.dat cache (reference FlowConstraints.cpp:86-93:
+    # load if the file exists and params match, else compute and save) ------
+
+    @property
+    def _cache_path(self) -> str:
+        return pjoin(self.store.base_dir, "flow_constraints.dat")
+
+    def _load_constraint_cache(self, pair_keys, triplet_keys):
+        from ..io.flow_constraints_dat import load_flow_constraints_dat
+
+        if not os.path.exists(self._cache_path):
+            return None, None
+        try:
+            ms, cpairs, ctrips = load_flow_constraints_dat(self._cache_path)
+        except (ValueError, OSError) as e:
+            print(f"ignoring unreadable flow_constraints.dat ({e})")
+            return None, None
+        # params-match check (reference FlowConstraints.cpp:144-149); the
+        # cached key set must cover this run's window
+        if ms != self.MATCH_SEPARATION:
+            return None, None
+        if not (set(cpairs) >= set(pair_keys) and set(ctrips) >= set(triplet_keys)):
+            return None, None
+        pairs = {
+            k: C.PairConstraints(
+                loc0=np.ascontiguousarray(cpairs[k][:, 0]),
+                loc1=np.ascontiguousarray(cpairs[k][:, 1]),
+                is_static=np.ones(len(cpairs[k]), bool),
+            )
+            for k in pair_keys
+        }
+        triplets = {
+            t: C.TripletConstraints(
+                loc=np.ascontiguousarray(ctrips[t]),
+                is_static=np.ones(len(ctrips[t]), bool),
+            )
+            for t in triplet_keys
+        }
+        return pairs, triplets
+
+    def _save_constraint_cache(self, pairs, triplets):
+        from ..io.flow_constraints_dat import save_flow_constraints_dat
+
+        save_flow_constraints_dat(
+            self._cache_path,
+            self.MATCH_SEPARATION,
+            {k: np.stack([pc.loc0, pc.loc1], axis=1) for k, pc in pairs.items()},
+            {t: tc.loc for t, tc in triplets.items()},
+        )
+
+    # -- optimization (reference pose_optimization.py:177-240) ---------------
+
+    def _make_inputs(self) -> PoseOptInputs:
+        depth = self.store.load_depth_stream(self.depth_stream)
+        opt = self.cfg.opt
+        inv_aspect = self.store.inv_aspect
+        data = C.flatten_pairs(
+            self.pair_keys, self.pairs, depth, inv_aspect, device=self.device
+        )
+        triplets = None
+        if opt.smooth_static_weight > 0 or opt.smooth_dynamic_weight > 0:
+            triplets = C.flatten_triplets(
+                self.triplet_keys, self.triplets, depth, inv_aspect,
+                opt.smooth_static_weight, opt.smooth_dynamic_weight,
+                device=self.device,
+            )
+        median = np.median(depth.reshape(depth.shape[0], -1), axis=1)
+        dyn = self.store.load_dynamic_mask() if opt.adaptive_deformation_cost > 0 else None
+        return PoseOptInputs(
+            data=data,
+            median_depth=torch.as_tensor(median.astype(np.float32), device=self.device),
+            aspect=self.store.aspect,
+            num_frames=self.store.num_frames,
+            triplets=triplets,
+            dynamic_mask=dyn,
+        )
+
+    def optimize_poses(self) -> SolverParams:
+        """One solve: cold (normalize + the full coarse-to-fine schedule) the
+        first time, warm afterwards when opt.warm_start. Each LM solve is
+        appended to `solve_log`."""
+        inputs = self._make_inputs()
+        self.solver_params = pose_opt.run(
+            self.cfg.opt, inputs, initial=self.solver_params, log=self.solve_log
+        )
+        self.last_inputs = inputs
+        return self.solver_params
