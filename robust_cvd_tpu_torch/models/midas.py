@@ -12,7 +12,12 @@ Module names follow the original checkpoint's state-dict keys
 convolutions: the JAX package's merge/block_dense/im2col lowerings are
 TPU workarounds for the same function.
 
-Inference runs BatchNorm in eval mode (running statistics, eps 1e-5).
+BatchNorm follows Flax's semantics (the JAX package's network): eval mode
+normalises with the running statistics (eps 1e-5); train mode normalises
+with the batch's biased statistics and leaves the running statistics alone
+until `commit_batch_stats` applies Flax's update, running = 0.9 running +
+0.1 batch, with the BIASED batch variance (torch's own BatchNorm2d would
+fold in the unbiased one) and only where the step's guard flag is set.
 """
 
 from __future__ import annotations
@@ -32,6 +37,61 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+BN_MOMENTUM = 0.9  # Flax's convention: running = 0.9 * running + 0.1 * batch
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d (same state-dict keys) with Flax's train mode.
+
+    In train mode the forward normalises with the batch mean and biased
+    variance and records them in `batch_stats`; the running buffers change
+    only through `commit_batch_stats`. Flax computes the variance as
+    E[x^2] - E[x]^2 clipped at 0, torch's kernel by a two-pass/Welford sum:
+    the same biased variance up to rounding. The batch statistics come out
+    of the fused batch_norm call itself (scratch running buffers at momentum
+    1 receive the batch mean and the unbiased variance, which is rescaled
+    by (n - 1) / n), so train mode adds no pass over the activations."""
+
+    batch_stats = None
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight, self.bias,
+                False, 0.0, self.eps,
+            )
+        mean = x.new_zeros(self.num_features)
+        var = x.new_zeros(self.num_features)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // self.num_features
+        self.batch_stats = (mean, var * ((n - 1) / n))
+        return y
+
+
+def batch_norms(net: nn.Module) -> list:
+    return [m for m in net.modules() if isinstance(m, BatchNorm2d)]
+
+
+def commit_batch_stats(net: nn.Module, ok: torch.Tensor) -> None:
+    """Fold the last train-mode forward's batch statistics into the
+    running statistics (Flax's update) where the device bool `ok` is set,
+    and keep them bitwise where it is not (the step's non-finite guard,
+    robust_cvd_tpu/training/fine_tune.py:307). One concatenated update, so
+    the cost does not grow with the number of layers; no host sync."""
+    layers = [m for m in batch_norms(net) if m.batch_stats is not None]
+    if not layers:
+        return
+    with torch.no_grad():
+        running = [m.running_mean for m in layers] + [m.running_var for m in layers]
+        batch = [m.batch_stats[0] for m in layers] + [m.batch_stats[1] for m in layers]
+        old = torch.cat(running)
+        new = BN_MOMENTUM * old + (1 - BN_MOMENTUM) * torch.cat(batch)
+        upd = torch.where(ok, new, old)
+        torch._foreach_copy_(running, list(upd.split([t.numel() for t in running])))
+    for m in layers:
+        m.batch_stats = None
+
+
 class Bottleneck(nn.Module):
     """torchvision ResNeXt bottleneck (groups=32, width/group=8): 1x1
     reduce -> grouped 3x3 (stride here) -> 1x1 expand, BN after each,
@@ -43,18 +103,18 @@ class Bottleneck(nn.Module):
         width = int(planes * (base_width / 64.0)) * groups
         out = planes * 4
         self.conv1 = nn.Conv2d(inplanes, width, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(width)
+        self.bn1 = BatchNorm2d(width)
         self.conv2 = nn.Conv2d(
             width, width, 3, stride=stride, padding=1, groups=groups, bias=False
         )
-        self.bn2 = nn.BatchNorm2d(width)
+        self.bn2 = BatchNorm2d(width)
         self.conv3 = nn.Conv2d(width, out, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out)
+        self.bn3 = BatchNorm2d(out)
         self.downsample = None
         if stride != 1 or inplanes != out:
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, out, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(out),
+                BatchNorm2d(out),
             )
 
     def forward(self, x):
@@ -124,7 +184,7 @@ class MidasNet(nn.Module):
         self.pretrained = nn.Module()
         self.pretrained.layer1 = nn.Sequential(
             nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False),
-            nn.BatchNorm2d(64),
+            BatchNorm2d(64),
             nn.ReLU(),
             nn.MaxPool2d(3, stride=2, padding=1),
             stage(64, 64, l1, 1),

@@ -1,9 +1,11 @@
 """Build and load the package's CUDA kernels at first use.
 
 Each `csrc/<name>.cu` exposes a plain C launcher. It is compiled for sm_90a
-by `torch.utils.cpp_extension.load` into `_build/kernels/` (listed in
-.gitignore) and opened with ctypes. The sources include no PyTorch header,
-so a build takes seconds. A failed build raises.
+by `torch.utils.cpp_extension.load` into `_build/kernels/<name>/` (listed
+in .gitignore; one directory per source, so that builds started together
+from several threads do not wait on one lock file) and opened with ctypes.
+The sources include no PyTorch header, so a build takes seconds. A failed
+build raises.
 """
 
 from __future__ import annotations
@@ -26,11 +28,12 @@ def load_cuda_library(name: str) -> ctypes.CDLL:
     if lib is None:
         from torch.utils.cpp_extension import load
 
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        build_dir = os.path.join(BUILD_DIR, name)
+        os.makedirs(build_dir, exist_ok=True)
         path = load(
             name=name,
             sources=[os.path.join(CSRC_DIR, f"{name}.cu")],
-            build_directory=BUILD_DIR,
+            build_directory=build_dir,
             extra_cuda_cflags=CUDA_FLAGS,
             is_python_module=False,
             verbose=False,

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import os
 from os.path import join as pjoin
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +27,15 @@ from ..solver import constraints as C
 from ..solver import pose_opt
 from ..solver.pose_opt import PoseOptInputs
 from ..solver.residuals import SolverParams
+
+
+class DepthStreamRef(NamedTuple):
+    """One registered depth stream: a name and an absolute directory holding
+    `depth/frame_%06d.raw` disparity files (reference DepthVideo's stream
+    list, lib/DepthVideo.cpp:409-580)."""
+
+    name: str
+    dir: str
 
 
 class PoseOptimizer:
@@ -45,6 +54,11 @@ class PoseOptimizer:
         self.solver_params: Optional[SolverParams] = None
         self.solve_log: list = []
         self._check_external_streams()
+        # stream 0 lives at <base>/<name>/depth; the newest stream is the one
+        # the fine-tuner writes
+        self.streams: List[DepthStreamRef] = [
+            DepthStreamRef(depth_stream, pjoin(store.base_dir, depth_stream))
+        ]
         self._build_constraints()
 
     def _check_external_streams(self):
@@ -60,15 +74,136 @@ class PoseOptimizer:
                 "(orchestration and CLI slice)"
             )
 
+    # -- depth-stream registry (reference pose_optimization.py:242-326) -----
+
+    def save_depth_to_last_stream(self, depth: np.ndarray) -> None:
+        """Write (N, h, w) depth as disparity .raw files into the newest
+        stream (the reference's save_depth into self.depth_dir)."""
+        from ..io import raw
+
+        if self.cfg.ft.save_depth_visualization:
+            raise NotImplementedError(
+                "depth visualizations are not ported yet (processor slice)"
+            )
+        d = pjoin(self.streams[-1].dir, "depth")
+        os.makedirs(d, exist_ok=True)
+        for i in range(self.store.num_frames):
+            raw.save_raw_float32_image(
+                pjoin(d, f"frame_{i:06d}.raw"), raw.depth_to_disparity(depth[i])
+            )
+
+    def duplicate_last_depth_stream(self, name: str, dir: str) -> DepthStreamRef:
+        """Copy the newest stream's .raw files into `dir`, register the new
+        stream and save (reference pose_optimization.py:262-290; poses and
+        transforms are shared solver state, so only pixels are copied)."""
+        import shutil
+
+        src = self.streams[-1]
+        dst = DepthStreamRef(name, dir)
+        os.makedirs(pjoin(dst.dir, "depth"), exist_ok=True)
+        for i in range(self.store.num_frames):
+            shutil.copyfile(
+                pjoin(src.dir, "depth", f"frame_{i:06d}.raw"),
+                pjoin(dst.dir, "depth", f"frame_{i:06d}.raw"),
+            )
+        self.streams.append(dst)
+        self.save()
+        return dst
+
     def filter_depth(self, radius: int):
         raise NotImplementedError(
             "the flow-guided depth filter is not ported yet (processor slice)"
         )
 
     def save(self):
-        raise NotImplementedError(
-            "writing video.dat is not ported yet (orchestration and CLI slice)"
+        """Camera state from the solver into the store, then `video.dat`
+        (reference pose_optimization.py:240 depth_video.save()). Nothing to
+        save before the first solve."""
+        from ..camera import pose_params_to_camera
+
+        if self.solver_params is None:
+            return
+        self.store.camera = pose_params_to_camera(
+            self.solver_params.pose, self.solver_params.focal, self.store.aspect
         )
+        self.write_video_dat()
+
+    def write_video_dat(self):
+        """The clip state in the reference's binary container
+        (lib/DepthVideo.cpp:300-385), with every registered stream; the
+        streams share poses and transforms (copy_poses,
+        pose_optimization.py:242-260)."""
+        from ..io import video_dat as vd
+
+        store = self.store
+        sp = self.solver_params
+        cam = store.camera
+        n = store.num_frames
+
+        def host(t, dtype):
+            return t.detach().cpu().numpy().astype(dtype)
+
+        gz, gy, gx = sp.depth_grid.shape[1:]
+        vx = "Scale" if sp.depth_shift is None else "ScaleShift"
+        if (gx, gy, gz) == (1, 1, 1):
+            ddesc = vd.XformDesc(type="Depth", depth_type="Global", value_xform=vx)
+        else:
+            ddesc = vd.XformDesc(
+                type="Depth", depth_type="Grid", value_xform=vx, grid_size=(gx, gy, gz)
+            )
+        sy, sx = sp.spatial_grid.shape[1:3]
+        if (sx, sy) == (1, 1):
+            sdesc = vd.XformDesc(type="Spatial", spatial_type="Identity")
+        else:
+            sdesc = vd.XformDesc(
+                type="Spatial", spatial_type="BicubicGrid", grid_size=(sx, sy, 0)
+            )
+
+        dh, dw = store.load_color_down().shape[1:3]
+        vfov, hfov = host(cam.vfov, float), host(cam.hfov, float)
+        position, quaternion = host(cam.position, float), host(cam.quaternion, float)
+        depth_grid = host(sp.depth_grid, np.float64).reshape(n, -1)
+        depth_shift = (
+            None if sp.depth_shift is None
+            else host(sp.depth_shift, np.float64).reshape(n, -1)
+        )
+        spatial_grid = host(sp.spatial_grid, np.float64).reshape(n, -1)
+        frames = [
+            vd.DepthFrameInfo(
+                vfov=float(vfov[i]),
+                hfov=float(hfov[i]),
+                position=tuple(position[i]),
+                quaternion=tuple(quaternion[i]),
+                enabled=True,
+                # ScaleShift interleaves [scale, shift] per handle
+                depth_params=(
+                    depth_grid[i] if depth_shift is None
+                    else np.stack([depth_grid[i], depth_shift[i]], -1).reshape(-1)
+                ),
+                spatial_params=spatial_grid[i] if (sx, sy) != (1, 1) else np.zeros(0),
+            )
+            for i in range(n)
+        ]
+        depth_streams = [
+            vd.DepthStreamInfo(
+                ref.name, os.path.relpath(ref.dir, store.base_dir),
+                ddesc, sdesc, dw, dh, frames,
+            )
+            for ref in self.streams
+        ]
+        meta = store.meta
+        container = vd.VideoDat(
+            pts=list(meta.pts),
+            color_streams=[
+                vd.ColorStreamInfo("full", "color_full", ".png", 21, meta.width, meta.height),
+                vd.ColorStreamInfo("down", "color_down", ".raw", 21, dw, dh),
+            ],
+            depth_streams=depth_streams,
+            duration=meta.pts[-1] if meta.pts else 0.0,
+            width=meta.width,
+            height=meta.height,
+        )
+        vd.save_video_dat(pjoin(store.base_dir, "video.dat"), container)
 
     # -- constraint construction (reference lib/FlowConstraints.cpp) --------
 

@@ -1,0 +1,505 @@
+"""Test-time depth fine-tuning (PyTorch): the train step and the loop.
+
+Port of robust_cvd_tpu/training/fine_tune.py (reference
+depth_fine_tuning.py:207-860):
+  - the whole clip's frames, flows and masks live on the device; a batch is
+    a set of pair ids gathered inside the step;
+  - one train step: MiDaS forward in train mode (Flax BatchNorm semantics),
+    the depth-transform scale maps, JointLoss, backward, the non-finite
+    guard and one fused Adam kernel launch over the flat parameter buffer
+    (training/optimizer.py, ops/adam.py), then the guarded BatchNorm update;
+  - the epoch loop alternates with depth refreshes and warm pose re-solves,
+    in the JAX package's pair order (a numpy permutation per epoch), batch
+    grouping (P // B full batches, then the remainder as one step) and
+    persistence (depth streams, video.dat, checkpoints).
+
+The JAX package runs an epoch's full batches as one lax.scan; here they are
+a Python loop whose per-step losses stay on the device, read back once per
+epoch (the loop's only host sync).
+
+Precision on the card: float32 parameters, activations and Adam state;
+cuDNN convolutions in TF32 unless the tuner is built with
+cudnn_tf32=False; the loss stack and geometry in full float32.
+
+Not ported yet, raising NotImplementedError: RAdam and the bf16 first
+moment (optimizer slice), recon=colmap and its per-step median rescale
+(importers slice), validation and per-pair eval artifacts
+(val_epoch_freq >= 0), the post filter (processor slice) and the
+data-parallel mesh fine-tune (multi-GPU slice). Tensorboard logging is not
+ported: no writer is built.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from os.path import join as pjoin
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..camera import pose_params_to_camera, quat_to_matrix
+from ..config import LossParams, PipelineConfig
+from ..device import float32_precision, resolve_device
+from ..models.midas import commit_batch_stats, depth_apply, normalize_images
+from ..ops import geometry
+from ..solver import pose_opt, xforms
+from ..solver.pose_opt import PoseOptInputs
+from ..solver.residuals import SolverParams
+from ..solver.xforms import GridSpec
+from . import losses
+from .losses import LossMeta
+from .optimizer import FlatAdam
+
+
+class ClipData(NamedTuple):
+    """Whole-clip training data on the device (static across epochs)."""
+
+    images: torch.Tensor  # (N, H, W, 3) in [0, 1]
+    depth_orig: torch.Tensor  # (N, H, W) initial depth
+    pair_idx: torch.Tensor  # (P, 2) int64
+    flows: torch.Tensor  # (P, 2, H, W, 2)
+    masks: torch.Tensor  # (P, 2, H, W) float
+    # temporal neighbours (only when the smoothness losses are on)
+    neighbor_idx: Optional[torch.Tensor] = None  # (P, 4) int64
+    flows_n: Optional[torch.Tensor] = None  # (P, 4, H, W, 2)
+    masks_n: Optional[torch.Tensor] = None  # (P, 4, H, W)
+    valid_n: Optional[torch.Tensor] = None  # (P, 2)
+
+
+class PoseState(NamedTuple):
+    """Per-frame geometry pulled from the solver after each pose solve."""
+
+    extrinsics: torch.Tensor  # (N, 3, 4) camera-to-world [R|t]
+    intrinsics: torch.Tensor  # (N, 4) pixel (fx, fy, cx, cy)
+    scales: torch.Tensor  # (N, H, W) depth-transform scale maps
+    warp: torch.Tensor  # (N, H, W, 2) NDC spatial warp maps
+
+
+def pose_state_from_solver(
+    params: SolverParams, shape: Tuple[int, int], aspect: float,
+    source_depth: Optional[torch.Tensor] = None,
+) -> PoseState:
+    """SolverParams -> per-frame training metadata (reference
+    loaders/video_dataset.py:153-217 update_poses)."""
+    shape = tuple(shape)
+    if source_depth is None:
+        source_depth = torch.ones(
+            (params.pose.shape[0],) + shape, device=params.pose.device
+        )
+    cam = pose_params_to_camera(params.pose, params.focal, aspect)
+    ext = torch.cat([quat_to_matrix(cam.quaternion), cam.position[:, :, None]], 2)
+    intr = geometry.intrinsics_px(cam.vfov, cam.hfov, shape)
+    gz, gy, gx = params.depth_grid.shape[1:]
+    dspec = GridSpec(gx=gx, gy=gy, gz=gz)
+    scales = torch.stack([
+        xforms.depth_param_map(g, dspec, shape, d)
+        for g, d in zip(params.depth_grid, source_depth)
+    ])
+    sy, sx = params.spatial_grid.shape[1:3]
+    warp = torch.stack([
+        xforms.spatial_warp_map(g, cubic=sx > 2 or sy > 2, shape=shape)
+        for g in params.spatial_grid
+    ])
+    return PoseState(extrinsics=ext, intrinsics=intr, scales=scales, warp=warp)
+
+
+def build_clip_data(
+    images: np.ndarray,
+    depth_orig: np.ndarray,
+    flow_list: List[Tuple[int, int, float]],
+    flows: Dict[Tuple[int, int], np.ndarray],
+    masks: Dict[Tuple[int, int], np.ndarray],
+    min_mask_ratio: float,
+    use_temporal: bool = False,
+    ref_disp: Optional[np.ndarray] = None,
+    device="cuda",
+) -> ClipData:
+    """Device tensors from per-pair host data. Keeps the pairs (i, j) with
+    i < j and min(ratio_ij, ratio_ji) > min_mask_ratio, sorted
+    (reference loaders/video_dataset.py:124-147)."""
+    if ref_disp is not None:
+        raise NotImplementedError(
+            "recon=colmap reference disparity is not ported yet (importers slice)"
+        )
+    device = resolve_device(device)
+    ratio = {(i, j): r for (i, j, r) in flow_list}
+    pairs = sorted(
+        (i, j)
+        for (i, j, r) in flow_list
+        if i < j and min(r, ratio.get((j, i), 0.0)) > min_mask_ratio
+    )
+    if not pairs:
+        raise ValueError("no frame pairs pass the mask-ratio filter")
+
+    n = images.shape[0]
+    p = len(pairs)
+    h, w = images.shape[1:3]
+
+    def dev(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    data = dict(
+        images=dev(images),
+        depth_orig=dev(depth_orig),
+        pair_idx=dev(pairs, torch.int64),
+        flows=dev(np.stack([np.stack([flows[(i, j)], flows[(j, i)]]) for (i, j) in pairs])),
+        masks=dev(np.stack([
+            np.stack([np.asarray(masks[(i, j)], np.float32),
+                      np.asarray(masks[(j, i)], np.float32)])
+            for (i, j) in pairs
+        ])),
+    )
+    if use_temporal:
+        nbr = np.zeros((p, 4), np.int64)
+        fln = np.zeros((p, 4, h, w, 2), np.float32)
+        mkn = np.zeros((p, 4, h, w), np.float32)
+        val = np.zeros((p, 2), np.float32)
+        for q, (i, j) in enumerate(pairs):
+            for a, anchor in enumerate((i, j)):
+                bw, fw = anchor - 1, anchor + 1
+                ok = bw >= 0 and fw < n and (anchor, bw) in flows and (anchor, fw) in flows
+                val[q, a] = float(ok)
+                if ok:
+                    nbr[q, 2 * a], nbr[q, 2 * a + 1] = bw, fw
+                    fln[q, 2 * a] = flows[(anchor, bw)]
+                    fln[q, 2 * a + 1] = flows[(anchor, fw)]
+                    mkn[q, 2 * a] = masks[(anchor, bw)]
+                    mkn[q, 2 * a + 1] = masks[(anchor, fw)]
+                else:
+                    nbr[q, 2 * a] = nbr[q, 2 * a + 1] = anchor
+        data.update(
+            neighbor_idx=dev(nbr, torch.int64), flows_n=dev(fln), masks_n=dev(mkn),
+            valid_n=dev(val),
+        )
+    return ClipData(**data)
+
+
+def colmap_depth_scale(depth, ref):
+    raise NotImplementedError(
+        "the recon=colmap per-frame median depth rescale is not ported yet "
+        "(importers slice)"
+    )
+
+
+def train_step(net, optimizer: FlatAdam, loss_opt: LossParams,
+               batch_ids: torch.Tensor, clip: ClipData, ps: PoseState,
+               use_temporal: bool):
+    """One fused train step (robust_cvd_tpu/training/fine_tune.py
+    ::_make_step_body) on the pairs `batch_ids` (B,) of `clip.pair_idx`.
+
+    Updates the net's parameters (through `optimizer`) and its BatchNorm
+    running statistics in place, both only when the loss and every gradient
+    are finite. Returns device tensors: the loss, the loss parts, and the
+    guard flag. Nothing is read back to the host."""
+    pair = clip.pair_idx[batch_ids]
+    frames = torch.cat([pair, clip.neighbor_idx[batch_ids]], 1) if use_temporal else pair
+    images = clip.images[frames]  # (B, K, H, W, 3)
+    b, k, h, w, _ = images.shape
+    meta = LossMeta(
+        extrinsics=ps.extrinsics[frames],
+        intrinsics=ps.intrinsics[frames],
+        flows=clip.flows[batch_ids],
+        masks=clip.masks[batch_ids],
+        warp=ps.warp[frames],
+        flows_n=clip.flows_n[batch_ids] if use_temporal else None,
+        masks_n=clip.masks_n[batch_ids] if use_temporal else None,
+        valid_n=clip.valid_n[batch_ids] if use_temporal else None,
+    )
+    optimizer.zero_grad()
+    net.train()
+    x = normalize_images(images.reshape(b * k, h, w, 3)).permute(0, 3, 1, 2).contiguous()
+    disp = net(x)
+    depth = (1.0 / (disp + 1e-7)).reshape(b, k, h, w) * ps.scales[frames]
+    total, parts = losses.joint_loss(
+        loss_opt, images, clip.depth_orig[frames], depth, meta,
+        params=optimizer.leaf, params_init=optimizer.init,
+    )
+    total.backward()
+    optimizer.check_aliasing()
+    loss = total.detach()
+    ok = optimizer.step(loss)
+    commit_batch_stats(net, ok)
+    return loss, {name: v.detach() for name, v in parts.items()}, ok
+
+
+class FineTuner:
+    """Epochs of train steps alternating with depth refreshes and pose
+    solves (reference DepthFineTuner.fine_tune, depth_fine_tuning.py:311-631).
+
+    With `pose` (the PoseOptimizer) and `out_dir` set, video.dat is written
+    after every pose solve, the depth streams under the experiment dir after
+    training, intermediate depth_e%04d[_opt] streams at
+    save_intermediate_depth_streams_freq and checkpoints/%04d.pth at
+    save_epoch_freq. `device` is where training runs ("cuda" unless the
+    caller asks for "cpu"); `clip` and `pose_inputs` must live there."""
+
+    def __init__(self, cfg: PipelineConfig, adapter, clip: ClipData,
+                 pose_inputs: Optional[PoseOptInputs], seed: int = 0,
+                 pose=None, out_dir: Optional[str] = None, mesh=None,
+                 pose_state_override: Optional[PoseState] = None,
+                 device="cuda", cudnn_tf32: bool = True):
+        ft = cfg.ft
+        if mesh is not None:
+            raise NotImplementedError(
+                "the data-parallel mesh fine-tune is not ported yet (multi-GPU slice)"
+            )
+        if cfg.recon == "colmap" or pose_state_override is not None:
+            raise NotImplementedError(
+                "recon=colmap fixed poses are not ported yet (importers slice)"
+            )
+        if ft.optimizer.lower() == "radam":
+            raise NotImplementedError(
+                "the RAdam optimizer is not ported yet (a later optimizer slice)"
+            )
+        if ft.optimizer.lower() != "adam":
+            raise ValueError(f"unknown optimizer {ft.optimizer!r}")
+        if ft.optimizer_mu_bf16:
+            raise NotImplementedError(
+                "a bf16 Adam first moment is not ported yet (a later optimizer slice)"
+            )
+        if ft.val_epoch_freq >= 0:
+            raise NotImplementedError(
+                "validation and per-pair eval artifacts (val_epoch_freq >= 0) "
+                "are not ported yet (orchestration and CLI slice)"
+            )
+        if cfg.post_filter:
+            raise NotImplementedError(
+                "the post filter is not ported yet (processor slice)"
+            )
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.cudnn_tf32 = cudnn_tf32
+        self.adapter = adapter
+        self.net = adapter.net.to(self.device)
+        self.clip = clip
+        self.pose_inputs = pose_inputs
+        self.pose = pose
+        self.out_dir = out_dir
+        self.rng = np.random.default_rng(seed)
+
+        lr = ft.learning_rate if ft.learning_rate > 0 else adapter.learning_rate
+        self.optimizer = FlatAdam(list(self.net.named_parameters()), lr)
+        self.use_temporal = (
+            cfg.loss.lambda_smooth_disparity > 0
+            or cfg.loss.lambda_smooth_reprojection > 0
+            or cfg.loss.lambda_smooth_depth_ratio > 0
+        )
+        self.solver_params: Optional[SolverParams] = None
+        self.pose_state: Optional[PoseState] = None
+        self.current_depth: Optional[torch.Tensor] = None
+        self.history: List[Dict] = []
+        self.solve_log: List[Dict] = []
+        self.stats: Dict[str, float] = {
+            "pose_opt_s": 0.0, "train_steps_s": 0.0, "refresh_s": 0.0,
+            "persist_io_s": 0.0,
+        }
+        if ft.save_tensorboard:
+            print("fine-tune: tensorboard logging is not ported; no writer is built")
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def train_step(self, batch_ids: torch.Tensor):
+        with float32_precision(self.cudnn_tf32):
+            return train_step(
+                self.net, self.optimizer, self.cfg.loss, batch_ids, self.clip,
+                self.pose_state, self.use_temporal,
+            )
+
+    def optimize_poses(self):
+        """Cold solve the first time, warm re-solves after that
+        (opt.warm_start); every LM solve is appended to `solve_log`."""
+        t0 = time.perf_counter()
+        self.solver_params = pose_opt.run(
+            self.cfg.opt, self.pose_inputs, initial=self.solver_params,
+            log=self.solve_log,
+        )
+        self.pose_state = pose_state_from_solver(
+            self.solver_params, tuple(self.clip.images.shape[1:3]),
+            self.pose_inputs.aspect, self.clip.depth_orig,
+        )
+        self._sync()
+        dt = time.perf_counter() - t0
+        self.stats["pose_opt_s"] += dt
+        self.stats.setdefault("pose_opt_first_s", dt)
+        if self.pose is not None:
+            # camera state and video.dat after every solve (reference
+            # pose_optimization.py:240 depth_video.save())
+            t1 = time.perf_counter()
+            self.pose.solver_params = self.solver_params
+            self.pose.save()
+            self.stats["persist_io_s"] += time.perf_counter() - t1
+
+    def run(self, num_epochs: Optional[int] = None):
+        ft = self.cfg.ft
+        num_epochs = num_epochs or ft.num_epochs
+        n_pairs = int(self.clip.pair_idx.shape[0])
+        batch = max(1, min(ft.batch_size, n_pairs))
+        inter_freq = ft.save_intermediate_depth_streams_freq
+        persist = self.pose is not None and self.out_dir is not None
+
+        @contextlib.contextmanager
+        def persist_io():
+            t = time.perf_counter()
+            yield
+            self.stats["persist_io_s"] += time.perf_counter() - t
+
+        def save_current_depth():
+            with persist_io():
+                self.pose.save_depth_to_last_stream(self.current_depth.cpu().numpy())
+
+        self.optimize_poses()
+        if persist:
+            # depth_e0000 with intermediate streams on, else the fine_tuned
+            # stream at the experiment dir itself (reference
+            # depth_fine_tuning.py:360-365)
+            with persist_io():
+                if inter_freq > 0:
+                    self.pose.duplicate_last_depth_stream(
+                        "e0000", pjoin(self.out_dir, "depth_e0000")
+                    )
+                else:
+                    self.pose.duplicate_last_depth_stream("fine_tuned", self.out_dir)
+
+        for epoch in range(num_epochs):
+            t0 = time.perf_counter()
+            order = torch.as_tensor(self.rng.permutation(n_pairs), device=self.device)
+            losses_d, oks = [], []
+            # P // B full batches, then the remainder as one step (reference
+            # DataLoader drop_last=False), as the JAX package groups them
+            for s in range(0, n_pairs, batch):
+                loss, _, ok = self.train_step(order[s : s + batch])
+                losses_d.append(loss)
+                oks.append(ok)
+            # the loop's one host sync: mean loss and skipped-step count
+            mean_loss, skipped = torch.stack(
+                [torch.stack(losses_d).mean(), (~torch.stack(oks)).sum().float()]
+            ).tolist()
+            dt = time.perf_counter() - t0
+            self.stats["train_steps_s"] += dt
+            self.stats.setdefault("train_first_epoch_s", dt)
+            self.history.append({
+                "epoch": epoch, "loss": mean_loss, "sec": dt, "steps": len(oks),
+                "skipped": int(skipped), "host_syncs": 1,
+            })
+            print(f"fine-tune epoch {epoch}: loss {mean_loss:.6f}, {len(oks)} steps, "
+                  f"{int(skipped)} skipped, 1 host sync in the train loop, {dt:.3f} s")
+
+            if ft.save_checkpoints and (epoch + 1) % max(1, ft.save_epoch_freq) == 0:
+                ckpt_dir = pjoin(self.out_dir, "checkpoints") if self.out_dir else "checkpoints"
+                self.save_checkpoint(ckpt_dir, epoch + 1)
+
+            save_inter = inter_freq > 0 and (epoch + 1) % inter_freq == 0
+            if save_inter:
+                self.refresh_depth()
+                if persist:
+                    save_current_depth()
+
+            if (epoch + 1) % max(1, ft.pose_opt_freq) == 0:
+                if persist and inter_freq > 0:
+                    with persist_io():
+                        self.pose.duplicate_last_depth_stream(
+                            f"e{epoch:04d}_opt", pjoin(self.out_dir, f"depth_e{epoch:04d}_opt")
+                        )
+                if not save_inter:
+                    self.refresh_depth()
+                self.optimize_poses()
+                if persist and save_inter:
+                    save_current_depth()
+
+            if persist and save_inter and epoch + 1 < num_epochs:
+                with persist_io():
+                    self.pose.duplicate_last_depth_stream(
+                        f"e{epoch + 1:04d}", pjoin(self.out_dir, f"depth_e{epoch + 1:04d}")
+                    )
+
+        self.refresh_depth()
+        if persist:
+            save_current_depth()
+        return self.history
+
+    def validate(self, epoch: int, niters: int):
+        raise NotImplementedError(
+            "validation is not ported yet (orchestration and CLI slice)"
+        )
+
+    def eval_pair_losses(self):
+        raise NotImplementedError(
+            "per-pair eval losses are not ported yet (orchestration and CLI slice)"
+        )
+
+    def refresh_depth(self):
+        """Re-infer the clip's depth with the current weights, then refresh
+        the solver inputs: per-frame median depth and the constraints'
+        source depths by nearest sampling, all on the device."""
+        t0 = time.perf_counter()
+        depth = self.infer_depth()
+        n, h, w = depth.shape
+        srt = depth.reshape(n, -1).sort(dim=1).values
+        m = srt.shape[1]
+        med = (srt[:, (m - 1) // 2] + srt[:, m // 2]) / 2  # jnp.median's midpoint
+        inv_aspect = 1.0 / self.pose_inputs.aspect
+
+        def samp(frames, loc):
+            # NDC -> [0, 1] x [0, inv_aspect], then truncation toward zero
+            u = (loc[..., 0] + 1) / 2
+            v = (1 - loc[..., 1]) / 2 * inv_aspect
+            x = torch.clamp((u * w).to(torch.int32), 0, w - 1).long()
+            y = torch.clamp((v / inv_aspect * h).to(torch.int32), 0, h - 1).long()
+            return depth[frames[:, None], y, x]
+
+        data = self.pose_inputs.data
+        self.pose_inputs = self.pose_inputs._replace(
+            data=data._replace(
+                depth0=samp(data.pair[:, 0], data.loc0),
+                depth1=samp(data.pair[:, 1], data.loc1),
+            ),
+            median_depth=med,
+        )
+        self.current_depth = depth
+        self._sync()
+        self.stats["refresh_s"] += time.perf_counter() - t0
+
+    def infer_depth(self, batch: int = 8) -> torch.Tensor:
+        """Whole-clip eval-mode inference in chunks of `batch` frames, the
+        last chunk padded by repeating its final frame (reference
+        save_depth, depth_fine_tuning.py:227-294)."""
+        images = self.clip.images
+        n = images.shape[0]
+        outs = []
+        self.net.eval()
+        with torch.no_grad(), float32_precision(self.cudnn_tf32):
+            for s in range(0, n, batch):
+                chunk = images[s : s + batch]
+                pad = batch - chunk.shape[0]
+                if pad:
+                    chunk = torch.cat([chunk, chunk[-1:].expand(pad, -1, -1, -1)], 0)
+                outs.append(depth_apply(self.net, chunk)[: batch - pad])
+        return torch.cat(outs, 0)
+
+    def save_checkpoint(self, ckpt_dir: str, epoch: int):
+        """Model and optimizer state as torch `checkpoints/%04d.pth` (the
+        reference's format, depth_fine_tuning.py:218-220, 568-573): the
+        net's state dict (BatchNorm statistics included), mu, nu and the
+        step count."""
+        os.makedirs(ckpt_dir, exist_ok=True)
+        opt = self.optimizer
+        torch.save(
+            {"state_dict": self.net.state_dict(), "mu": opt.mu, "nu": opt.nu,
+             "count": opt.count},
+            pjoin(ckpt_dir, f"{epoch:04d}.pth"),
+        )
+
+    def load_checkpoint(self, ckpt_dir: str, epoch: int):
+        ck = torch.load(pjoin(ckpt_dir, f"{epoch:04d}.pth"), map_location=self.device,
+                        weights_only=True)
+        self.net.load_state_dict(ck["state_dict"])
+        opt = self.optimizer
+        opt.mu.copy_(ck["mu"])
+        opt.nu.copy_(ck["nu"])
+        opt.count.copy_(ck["count"])
+        opt.check_aliasing()

@@ -113,10 +113,50 @@ def test_writers_byte_identical(tmp_path):
     ms, lp, lt = tdat.load_flow_constraints_dat(str(tmp_path / "jb.dat"))
     assert ms == 10 and set(lp) == set(pairs) and np.array_equal(lt[1], trips[1])
 
+    # video.dat of the same solver state (a 2x3x1 depth grid with shifts and
+    # a 2x2 bicubic warp grid) from both packages' writers
+    from robust_cvd_tpu.io import video_dat as jvd
+    from robust_cvd_tpu_torch.io import video_dat as tvd
+
+    n = 3
+    grid = rng.uniform(0.5, 2, (n, 6)).astype(np.float64)
+    shift = rng.normal(0, 0.1, (n, 6))
+    warp = rng.normal(0, 0.01, (n, 8))
+    pose = rng.normal(0, 1, (n, 7)).astype(np.float32)
+
+    def container(vd):
+        frames = [
+            vd.DepthFrameInfo(
+                vfov=0.8 + 0.01 * i, hfov=1.2, position=tuple(map(float, pose[i, :3])),
+                quaternion=tuple(map(float, pose[i, 3:])), enabled=True,
+                depth_params=np.stack([grid[i], shift[i]], -1).reshape(-1),
+                spatial_params=warp[i],
+            )
+            for i in range(n)
+        ]
+        ddesc = vd.XformDesc(type="Depth", depth_type="Grid", value_xform="ScaleShift",
+                             grid_size=(3, 2, 1))
+        sdesc = vd.XformDesc(type="Spatial", spatial_type="BicubicGrid", grid_size=(2, 2, 0))
+        return vd.VideoDat(
+            pts=[0.0, 0.5, 1.0],
+            color_streams=[vd.ColorStreamInfo("down", "color_down", ".raw", 21, 64, 32)],
+            depth_streams=[vd.DepthStreamInfo("depth_midas2", "depth_midas2", ddesc, sdesc,
+                                              64, 32, frames)],
+            duration=1.0, width=64, height=32,
+        )
+
+    jvd.save_video_dat(str(tmp_path / "j.dat"), container(jvd))
+    tvd.save_video_dat(str(tmp_path / "t.dat"), container(tvd))
+    assert (tmp_path / "j.dat").read_bytes() == (tmp_path / "t.dat").read_bytes()
+    back = tvd.load_video_dat(str(tmp_path / "j.dat"))
+    assert np.allclose(back.depth_streams[0].frames[2].spatial_params, warp[2])
+
 
 def test_entry_points_refuse_cpu_without_asking(monkeypatch, tmp_path):
     from robust_cvd_tpu_torch.config import PipelineConfig
     from robust_cvd_tpu_torch.device import resolve_device
+    from robust_cvd_tpu_torch.pipeline.process import DatasetProcessor
+    from robust_cvd_tpu_torch.training.fine_tune import FineTuner, build_clip_data
     from robust_cvd_tpu_torch.io.frames import save_frames_txt
     from robust_cvd_tpu_torch.io.store import VideoStore
     from robust_cvd_tpu_torch.pipeline.depth import compute_initial_depth
@@ -131,6 +171,20 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch, tmp_path):
         compute_initial_depth(store, None, "midas2")
     with pytest.raises(RuntimeError, match="CUDA"):
         PoseOptimizer(PipelineConfig(), store, "depth_midas2")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DatasetProcessor(PipelineConfig())
+    clip = build_clip_data(
+        np.zeros((2, 4, 4, 3), np.float32), np.ones((2, 4, 4), np.float32),
+        [(0, 1, 1.0), (1, 0, 1.0)],
+        {(0, 1): np.zeros((4, 4, 2), np.float32), (1, 0): np.zeros((4, 4, 2), np.float32)},
+        {(0, 1): np.ones((4, 4)), (1, 0): np.ones((4, 4))}, 0.2, device="cpu",
+    )
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_clip_data(np.zeros((2, 4, 4, 3)), np.ones((2, 4, 4)), [], {}, {}, 0.2)
+    from robust_cvd_tpu_torch.models.midas import MidasV2Adapter, MidasNet
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FineTuner(PipelineConfig(), MidasV2Adapter(MidasNet(32, (1, 1, 1, 1))), clip, None)
     assert resolve_device("cpu").type == "cpu"
 
 

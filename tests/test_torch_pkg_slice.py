@@ -142,8 +142,11 @@ def test_constraint_cache_is_reused(runs, monkeypatch):
 
 def test_unported_paths_raise(runs, tmp_path):
     tpose = runs["tpose"]
-    with pytest.raises(NotImplementedError):
-        tpose.save()
+    tpose.save()  # writes video.dat of the solved clip
+    from robust_cvd_tpu_torch.io.video_dat import load_video_dat
+
+    vd = load_video_dat(os.path.join(runs["tdir"], "video.dat"))
+    assert [s.name for s in vd.depth_streams] == ["depth_midas2"]
     with pytest.raises(NotImplementedError):
         tpose.filter_depth(4)
     cfg = dataclasses.replace(
