@@ -7,10 +7,17 @@ Phases, each of which raises on failure (exit code 1):
 1. device: requires CUDA; prints the card's name and power limit.
 2. kernels: builds every kernel of the path from csrc/ (one nvcc per source,
    started together) and holds each against its plain PyTorch version on
-   the card, timing kernel, plain version and, where one exists, the
-   PyTorch library call with CUDA events (median after warm-up):
-   - corner response at the path's shape and at an odd shape with partial
-     tiles (tolerance 1e-4 * max|ref| + 1e-5);
+   the card. Each kernel's time (`ms`) is the card's: K back-to-back
+   launches through its raw ctypes launcher (no wrapper on the host)
+   between one CUDA event pair, over buffers that one cycle of launches
+   cannot find in the L2, divided by K (`back_to_back_ms`). Beside it,
+   `call_ms` is one wrapper call between an event pair (median after
+   warm-up), what the path pays per call; the plain version is timed that
+   way and the PyTorch library call, where one exists, back to back:
+   - corner response at the path's shape, at the edge shapes of
+     tests/test_torch_pkg_corner.py (every ragged path of the kernel), on a
+     non-contiguous input, at N = 0 and at N = 70,000 frames (tolerance
+     1e-4 * max|ref| + 1e-5);
    - Adam at the full-width MiDaS-v2 parameter count and at 1,000,003, with
      bias correction on and off, at step counts 0 and 7: mu', nu' and the
      update p' - p within 1e-4 * max|ref| + 1e-7; with the guard flag false
@@ -54,6 +61,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -66,6 +74,15 @@ H, W = 224, 384  # color_down of the bench clip (bench.py)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 KERNELS = ("corner_min_eigenval", "adam")  # csrc/<name>.cu
+L2_BYTES = 50e6  # H100 SXM
+BACK_TO_BACK = 60  # launches between one event pair
+SPIN_CYCLES = 50_000_000  # torch.cuda._sleep ahead of them, ~25 ms
+# The corner kernel's edge shapes, as in tests/test_torch_pkg_corner.py:
+# W % 4 in {1, 2, 3} (the scalar path), H not a multiple of the 32-row
+# strip, W narrower than one 128-column band, a partial last band on the
+# float4 path, H = W = 2.
+CORNER_EDGE_SHAPES = ((3, 37, 53), (2, 24, 128), (3, 17, 33), (2, 40, 129),
+                      (1, 37, 130), (3, 64, 131), (2, 64, 200), (3, 2, 2))
 
 
 def device_line() -> str:
@@ -95,6 +112,35 @@ def time_ms(fn, *args, reps: int = 20) -> float:
     return float(np.median(times))
 
 
+def back_to_back_ms(launch, k: int = BACK_TO_BACK, warm: int = 4) -> float:
+    """Device ms per call of launch(i), i = 0..k-1, enqueued back to back
+    between one CUDA event pair (elapsed / k), after `warm` untimed calls.
+
+    A spin kernel (torch.cuda._sleep) runs ahead of the first event, so the
+    host has enqueued all k calls before the card reaches them and the time
+    is the card's, not the host's enqueue rate; raises if the host took
+    longer than the spin."""
+    import torch
+
+    for i in range(warm):
+        launch(i)
+    torch.cuda.synchronize()
+    spin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    spin.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(k):
+        launch(i)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    if host_ms >= spin.elapsed_time(start):
+        raise AssertionError(f"enqueueing {k} calls took {host_ms:.3f} ms, longer than "
+                             f"the {spin.elapsed_time(start):.3f} ms spin ahead of them")
+    return start.elapsed_time(end) / k
+
+
 def build_kernels() -> None:
     """Compile and load every csrc/<name>.cu, all builds started together
     (one nvcc process each)."""
@@ -115,44 +161,93 @@ def _timed_build(name: str) -> float:
     return time.perf_counter() - t0
 
 
-def kernel_phase(n_frames: int, seed: int) -> dict:
-    """The corner kernel against its plain version; its kernels-line entry."""
+def corner_check(gray, label: str) -> float:
+    """The corner kernel (through its wrapper) against its plain version on
+    one input; returns max|err|."""
     import torch
 
     from robust_cvd_tpu_torch.ops import corner
 
+    before = corner.corner_min_eigenval.launches
+    got = corner.corner_min_eigenval(gray)
+    torch.cuda.synchronize()
+    ref = corner.corner_min_eigenval_plain(gray)
+    if got.shape != gray.shape or corner.corner_min_eigenval.launches != before + (
+            gray.shape[0] > 0):
+        raise AssertionError(f"corner kernel at {label}: shape {tuple(got.shape)}, "
+                             f"{corner.corner_min_eigenval.launches - before} launches")
+    if ref.numel() == 0:
+        print(f"corner_min_eigenval {label}: empty output, no launch")
+        return 0.0
+    err = (got - ref).abs().max().item()
+    tol = 1e-4 * ref.abs().max().item() + 1e-5
+    print(f"corner_min_eigenval {label}: max|err| {err:.3e} (tolerance {tol:.3e})")
+    if not err <= tol:
+        raise AssertionError(f"corner kernel disagrees with its plain version at {label}")
+    return err
+
+
+def corner_phase(n_frames: int, seed: int) -> dict:
+    """The corner kernel against its plain version at the path's shape and
+    every edge shape; its kernels-line entry."""
+    import torch
+
     g = torch.Generator().manual_seed(seed)
-    result = {}
-    for shape in ((n_frames, H, W), (3, 37, 53)):
-        gray = torch.rand(shape, generator=g).cuda()
-        got = corner.corner_min_eigenval(gray)
-        torch.cuda.synchronize()
-        ref = corner.corner_min_eigenval_plain(gray)
-        err = (got - ref).abs().max().item()
-        tol = 1e-4 * ref.abs().max().item() + 1e-5
-        print(f"corner_min_eigenval {shape}: max|err| {err:.3e} (tolerance {tol:.3e})")
-        if not err <= tol:
-            raise AssertionError(f"corner kernel disagrees with its plain version at {shape}")
-        if shape[0] == n_frames:
-            ms = time_ms(corner.corner_min_eigenval, gray)
-            plain_ms = time_ms(corner.corner_min_eigenval_plain, gray)
-            pixels = gray.numel()
-            bytes_ms = 8.0 * pixels / PEAK_BYTES_PER_S * 1e3  # one f32 read + write
-            ops_ms = 50.0 * pixels / PEAK_F32_FLOPS * 1e3  # ~50 flops per pixel
-            result = {
-                "name": "corner_min_eigenval",
-                "route": "cuda",
-                "source": "robust_cvd_tpu_torch/csrc/corner_min_eigenval.cu",
-                "replaces": "robust_cvd_tpu/ops/pallas_kernels.py:74",
-                "max_abs_err": err,
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": None,  # no single PyTorch call computes it
-            }
-            print(f"corner_min_eigenval {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"bound {result['bound_ms']:.4f} ms")
+    for shape in CORNER_EDGE_SHAPES + ((0, 24, 128), (70_000, 3, 5)):
+        corner_check(torch.rand(shape, generator=g).cuda(), str(shape))
+    corner_check(torch.rand((2, 48, 24), generator=g).cuda().transpose(1, 2),
+                 "(2, 24, 48) non-contiguous")
+    gray = torch.rand((n_frames, H, W), generator=g).cuda()
+    return corner_entry(gray, corner_check(gray, str(tuple(gray.shape))))
+
+
+def corner_entry(gray, err: float) -> dict:
+    """Times the corner kernel (raw launcher, back to back) on `gray` and
+    further input/output pairs, at least 4 and a cycle of at least twice
+    the L2; the wrapper (one call) and the plain version on `gray`. Returns
+    its kernels-line entry."""
+    import torch
+
+    from robust_cvd_tpu_torch.ops import corner
+
+    n, h, w = gray.shape
+    nbytes = 8.0 * gray.numel()  # one f32 read + one f32 write per pixel
+    pairs = max(4, math.ceil(2 * L2_BYTES / nbytes))
+    ins = [gray] + [torch.rand_like(gray) for _ in range(pairs - 1)]
+    outs = [torch.empty_like(gray) for _ in range(pairs)]
+    fn = corner._kernel()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(i):
+        if fn(ins[i % pairs].data_ptr(), outs[i % pairs].data_ptr(), n, h, w, stream):
+            raise RuntimeError("corner kernel launch failed")
+
+    ms = back_to_back_ms(launch)
+    call_ms = time_ms(corner.corner_min_eigenval, gray)
+    plain_ms = time_ms(corner.corner_min_eigenval_plain, gray)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 50.0 * gray.numel() / PEAK_F32_FLOPS * 1e3  # ~50 flops per pixel
+    result = {
+        "name": "corner_min_eigenval",
+        "route": "cuda",
+        "source": "robust_cvd_tpu_torch/csrc/corner_min_eigenval.cu",
+        "replaces": "robust_cvd_tpu/ops/pallas_kernels.py:74",
+        "max_abs_err": err,
+        "ms": ms,
+        "call_ms": call_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,  # no single PyTorch call computes it
+        "gbps": nbytes / ms * 1e-6,
+        "share_of_bound": max(bytes_ms, ops_ms) / ms,
+    }
+    print(f"corner_min_eigenval {tuple(gray.shape)}: kernel {ms:.4f} ms back to back over "
+          f"{pairs} cold pairs ({result['gbps']:.1f} GB/s, {result['share_of_bound']:.3f} "
+          f"of the bound), one wrapper call {call_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {result['bound_ms']:.4f} ms")
+    del ins, outs
+    torch.cuda.empty_cache()
     return result
 
 
@@ -203,16 +298,29 @@ def adam_phase(n_full: int, seed: int) -> dict:
               f"update (bias correction on/off, count 0/7); guard false leaves all "
               f"four buffers bitwise unchanged")
         if n == n_full:
+            # one set of buffers (7 x 4 B x n = 2.95 GB a launch) is far
+            # larger than the L2, so back-to-back launches reuse it cold
             count = torch.zeros((), dtype=torch.int32, device="cuda")
             ok = torch.ones((), dtype=torch.bool, device="cuda")
             bufs = [t.clone() for t in base]
-            ms = time_ms(lambda: adam.adam_update(*bufs, count, ok, lr))
+            fn = adam._kernel()
+            stream = torch.cuda.current_stream().cuda_stream
+            ptrs = [t.data_ptr() for t in bufs]
+
+            def launch(_):
+                if fn(*ptrs, n, lr, 0.9, 0.999, 1e-8, 1, count.data_ptr(),
+                      ok.data_ptr(), stream):
+                    raise RuntimeError("adam kernel launch failed")
+
+            ms = back_to_back_ms(launch)
+            call_ms = time_ms(lambda: adam.adam_update(*bufs, count, ok, lr))
             plain_ms = time_ms(lambda: adam.adam_update_plain(*bufs, count, ok, lr))
             flat = torch.nn.Parameter(base[0].clone())
             flat.grad = base[1].clone()
             lib = torch.optim.Adam([flat], lr=lr, fused=True)
-            library_ms = time_ms(lib.step)
-            bytes_ms = 7 * 4.0 * n / PEAK_BYTES_PER_S * 1e3  # 4 streams in, 3 out
+            library_ms = back_to_back_ms(lambda _: lib.step())
+            nbytes = 7 * 4.0 * n  # 4 streams in, 3 out
+            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
             ops_ms = 14.0 * n / PEAK_F32_FLOPS * 1e3  # ~14 flops per element
             result = {
                 "name": "adam",
@@ -221,14 +329,18 @@ def adam_phase(n_full: int, seed: int) -> dict:
                 "replaces": ADAM_REPLACES,
                 "max_abs_err": worst,
                 "ms": ms,
+                "call_ms": call_ms,
                 "plain_ms": plain_ms,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "library_ms": library_ms,
+                "gbps": nbytes / ms * 1e-6,
+                "share_of_bound": max(bytes_ms, ops_ms) / ms,
             }
-            print(f"adam n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"torch.optim.Adam(fused=True) {library_ms:.4f} ms, "
-                  f"bound {result['bound_ms']:.4f} ms")
+            print(f"adam n={n}: kernel {ms:.4f} ms back to back ({result['gbps']:.1f} GB/s, "
+                  f"{result['share_of_bound']:.3f} of the bound), one wrapper call "
+                  f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.optim.Adam(fused=True) "
+                  f"{library_ms:.4f} ms back to back, bound {result['bound_ms']:.4f} ms")
             del bufs, flat, lib
         del base
     torch.cuda.empty_cache()
@@ -677,7 +789,7 @@ def main() -> int:
     print(f"frames: {args.frames}" + (" (the bench clip length)" if args.frames == 100 else " (cut)"))
     print(f"epochs: {args.epochs}" + (" (the default)" if args.epochs == 10 else " (cut from 10)"))
     build_kernels()
-    corner_k = kernel_phase(args.frames, args.seed)
+    corner_k = corner_phase(args.frames, args.seed)
     from robust_cvd_tpu_torch.models.midas import MidasNet
 
     with torch.device("meta"):

@@ -1,7 +1,8 @@
 """Package rules of the PyTorch port (robust_cvd_tpu_torch).
 
 - Importing every module of the port loads neither jax nor robust_cvd_tpu.
-- No source of the port (nor chip_smoke.py) imports them.
+- No source of the port (nor chip_smoke.py, nor the port's tools) imports
+  them.
 - The copied configuration keeps the JAX package's defaults, and the copied
   writers produce byte-identical files.
 - Entry points raise without CUDA unless the caller asks for the CPU, and a
@@ -61,7 +62,8 @@ def _imported_names(path):
 
 
 def test_sources_import_no_jax_or_jax_package():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, p) for p in (
+        "chip_smoke.py", "tools/sweep_corner_cuda.py", "tools/time_kernels_cuda.py")]
     for root, _, names in os.walk(PKG_DIR):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = []
