@@ -51,9 +51,35 @@ Phases, each of which raises on failure (exit code 1):
 7. profile: torch.profiler over 5 steady-state train steps of that path:
    the 10 device kernels with the most time, the share of index, gather and
    scatter kernels (the loss stack's sampler), the device idle share.
+8. RAFT, card vs CPU: seeded RAFT at float32 (no TF32), 3 iterations, 2
+   pairs at 64x96 (RAFT_TOL); run after the train-step check.
+9. flow path: a second synthetic 100-frame clip written as the pipeline
+   makes it (color_full PNGs at 224x384, color_down 224x384 .raw,
+   color_flow 256x384 .png by pipeline/video.py), RAFT (bf16, 20
+   iterations, seeded random weights saved as <clip>/models/raft-things.pth
+   unless RAFT_CHECKPOINT names a checkpoint) loaded through
+   DatasetProcessor._flow_model(), and FlowStage(batch_size=16):
+   compute_flow over the 572 hierarchical2 pairs (registration through the
+   corner kernel, one launch a chunk over both frame stacks, RAFT, un-warp
+   and resize), compute_flow_masks, compute_flow_pair_stats. Checks 572
+   finite flows at 224x384, masks of the 286 unordered pairs, 572 entries
+   in flow_list.json, corner launches on the path, and that H_BA maps the
+   image centre within 1 px of the true shift in at least the share of
+   pairs the JAX package reaches on the CPU (JAX_REGISTRATION_SHARE).
+10. exact-flow masks: the mask program on make_clip's exact flows
+   reproduces its in-bounds masks bit for bit; register_pairs card vs CPU
+   on 4 pairs (H within 1e-3); RAFT bf16 vs float32 on one full chunk
+   (printed); the corner kernel checked and timed at the registration's
+   shape (32, 256, 384).
+11. flow profile: torch.profiler over one steady-state 16-pair chunk of
+   compute_flow: ms per chunk, the top 10 device kernels, the device time
+   of registration, RAFT, the correlation lookup and the post-process, the
+   device idle share.
 
-Prints per-stage seconds, a {"kernels": [...]} line, the nvidia-smi line,
-and as its last line {"ok": true, "device": {...}}.
+Prints per-stage seconds, a {"kernels": [...]} line (the corner kernel's
+entry carries the launches of both paths and, under "flow_path", its
+numbers at the registration's shape), the nvidia-smi line, and as its last
+line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -71,6 +97,17 @@ import time
 import numpy as np
 
 H, W = 224, 384  # color_down of the bench clip (bench.py)
+SHIFT = 2  # px a frame of the synthetic clips' panning
+# Sizes of the flow store's color_down and color_flow (size or max size,
+# align), as the pipeline makes them (pipeline/process.py).
+DOWN_SIZE = (384, 32)
+FLOW_SIZE = (1024, 64)
+# Share of the registration-vs-truth pairs (|i - j| * SHIFT <= 96 px) whose
+# H_BA maps the image centre within 1 px of the true shift, reached by the
+# JAX package's register_pairs on the CPU on the same 100 frames: 568 of
+# 568 (tools/registration_share.py); the port on the card must reach it too.
+JAX_REGISTRATION_SHARE = 1.0
+RAFT_TOL = (1e-4, 5e-5)  # card vs CPU flow at float32: rel of max|flow|, abs px
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 KERNELS = ("corner_min_eigenval", "adam")  # csrc/<name>.cu
@@ -500,27 +537,33 @@ def solver_phase(seed: int) -> None:
         raise AssertionError("the solver on the card disagrees with the CPU")
 
 
-def make_clip(base: str, n: int, seed: int, shift: int = 2) -> None:
-    """A synthetic clip: frame i is columns [i*shift, i*shift + W) of one
-    seeded texture, so the flow from i to j is exactly (i - j) * shift px in
-    x; a pair's consistency mask is where the flow target lands in bounds."""
-    from robust_cvd_tpu_torch.io import raw
-    from robust_cvd_tpu_torch.io.frames import save_frames_txt
-    from robust_cvd_tpu_torch.io.store import VideoStore, frame_name
-    from robust_cvd_tpu_torch.utils.frame_sampling import sample_pairs
-
+def panning_frames(n: int, seed: int, shift: int = SHIFT) -> np.ndarray:
+    """(n, H, W, 3) float32: frame i is columns [i*shift, i*shift + W) of
+    one seeded texture, so frame j is frame i moved (j - i) * shift px to
+    the left and the flow from i to j is exactly (i - j) * shift px in x."""
     rng = np.random.default_rng(seed)
     noise = rng.uniform(0.0, 1.0, (H + 2, W + shift * (n - 1) + 2, 3)).astype(np.float32)
     texture = sum(  # 3x3 box blur: structure at several scales
         noise[dy : dy + H, dx : dx + noise.shape[1] - 2]
         for dy in range(3) for dx in range(3)
     ) / 9.0
+    return np.stack([texture[:, i * shift : i * shift + W] for i in range(n)])
+
+
+def make_clip(base: str, n: int, seed: int, shift: int = SHIFT) -> None:
+    """A synthetic clip of panning_frames as color_down, with the exact
+    flows of every hierarchical2 pair and their consistency masks: where
+    the flow target lands in bounds."""
+    from robust_cvd_tpu_torch.io import raw
+    from robust_cvd_tpu_torch.io.frames import save_frames_txt
+    from robust_cvd_tpu_torch.io.store import VideoStore, frame_name
+    from robust_cvd_tpu_torch.utils.frame_sampling import sample_pairs
+
+    frames = panning_frames(n, seed, shift)
     os.makedirs(os.path.join(base, "color_down"))
     for i in range(n):
         raw.save_raw_float32_image(
-            os.path.join(base, "color_down", frame_name(i, ".raw")),
-            texture[:, i * shift : i * shift + W],
-        )
+            os.path.join(base, "color_down", frame_name(i, ".raw")), frames[i])
     save_frames_txt(os.path.join(base, "frames.txt"), W, H, [i / 30 for i in range(n)])
     store = VideoStore.open(base)
     entries = []
@@ -529,7 +572,7 @@ def make_clip(base: str, n: int, seed: int, shift: int = 2) -> None:
         dx = float((i - j) * shift)
         flow = np.zeros((H, W, 2), np.float32)
         flow[..., 0] = dx
-        target = (xs + dx + 0.5).astype(np.int32)
+        target = np.floor(xs + dx + 0.5)  # the nearest pixel, also left of 0
         mask = np.broadcast_to((target >= 0) & (target < W), (H, W))
         store.save_flow(i, j, flow)
         store.save_flow_mask(i, j, mask)
@@ -727,28 +770,14 @@ def profile_phase(tuner, steps: int = 5) -> None:
             tuner.train_step(i)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_events(prof)
     if not kernels:
         print(f"profile: the profiler recorded no device time; {steps} steps took "
               f"{wall * 1e3 / steps:.2f} ms each (host clock, synchronised); idle "
               f"share not measured")
         return
-    by_name = {}
-    spans = []
-    for e in kernels:
-        dt = e.time_range.end - e.time_range.start
-        by_name[e.name] = by_name.get(e.name, 0.0) + dt
-        spans.append((e.time_range.start, e.time_range.end))
-    spans.sort()
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s0, e0 in spans[1:]:
-        if s0 > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s0, e0
-        else:
-            cur_e = max(cur_e, e0)
-    busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
+    by_name = _time_by_name(kernels)
+    busy, window = _busy_us(kernels)
     total = sum(by_name.values())
     busy_step = busy / 1e6 / steps
     print(f"profile: {steps} train steps, {plain_step * 1e3:.2f} ms per step unprofiled, "
@@ -764,6 +793,315 @@ def profile_phase(tuner, steps: int = 5) -> None:
     print(f"profile: index/gather/scatter kernels (the loss stack's bilinear sampler, its "
           f"scatter-add backward and the step's clip gathers) {sampler / 1e3 / steps:.3f} "
           f"ms/step, {sampler / total:.2%} of device time")
+
+
+def flow_store(base: str, n: int, seed: int) -> None:
+    """A clip of panning_frames written as the pipeline makes it: color_full
+    PNGs (H x W), frames.txt, color_down (.raw) and color_flow (.png)."""
+    from robust_cvd_tpu_torch.io.frames import save_frames_txt
+    from robust_cvd_tpu_torch.io.store import frame_name, save_png_color
+    from robust_cvd_tpu_torch.pipeline.video import VideoStage
+
+    os.makedirs(os.path.join(base, "color_full"))
+    for i, frame in enumerate(panning_frames(n, seed)):
+        save_png_color(os.path.join(base, "color_full", frame_name(i, ".png")), frame)
+    save_frames_txt(os.path.join(base, "frames.txt"), W, H, [i / 30 for i in range(n)])
+    video = VideoStage(base)
+    video.downscale_frames("color_down", DOWN_SIZE[0], ".raw", DOWN_SIZE[1])
+    video.downscale_frames("color_flow", FLOW_SIZE[0], ".png", FLOW_SIZE[1])
+
+
+def registration_truth(homographies: dict, flow_hw, shift_px: float, max_shift: float = 96.0):
+    """Of the pairs (i, j) with |i - j| * shift_px <= max_shift, those whose
+    H_BA maps the image centre within 1 px of its true place (frame j is
+    frame i moved (j - i) * shift_px to the left). Returns (hits, pairs,
+    worst error in px)."""
+    h, w = flow_hw
+    c = np.array([(w - 1) / 2.0, (h - 1) / 2.0, 1.0])
+    hits, n, worst = 0, 0, 0.0
+    for (i, j), H_BA in homographies.items():
+        if abs(i - j) * shift_px > max_shift:
+            continue
+        p = H_BA @ c
+        err = float(np.hypot(p[0] / p[2] - c[0] - (j - i) * shift_px, p[1] / p[2] - c[1]))
+        n += 1
+        hits += err <= 1.0
+        worst = max(worst, err if np.isfinite(err) else np.inf)
+    return hits, n, worst
+
+
+def flow_phase(base: str, n_frames: int, seed: int, device: str = "cuda",
+               iters: int | None = None, dtype=None, min_share: float | None = None):
+    """Drives the flow stage on a flow store made in `base`: RAFT from
+    <base>/models/raft-things.pth (seeded random weights written there
+    unless RAFT_CHECKPOINT names a checkpoint) through
+    DatasetProcessor._flow_model(), FlowStage(batch_size=16):
+    compute_flow over the hierarchical2 pairs, compute_flow_masks,
+    compute_flow_pair_stats. `iters` and `dtype` cut the RAFT (20, bf16)
+    for a CPU run. Checks the outputs and the registration against the
+    truth; returns the corner kernel's launches and the stage."""
+    import torch
+
+    from robust_cvd_tpu_torch.config import PipelineConfig
+    from robust_cvd_tpu_torch.io import raw
+    from robust_cvd_tpu_torch.io.store import VideoStore
+    from robust_cvd_tpu_torch.models import raft
+    from robust_cvd_tpu_torch.ops import corner
+    from robust_cvd_tpu_torch.pipeline.flow import FlowStage
+    from robust_cvd_tpu_torch.pipeline.process import DatasetProcessor
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    flow_store(base, n_frames, seed)
+    print(f"stage flow_store_build_s {time.perf_counter() - t0:.3f}")
+    ckpt = os.path.join(base, "models", "raft-things.pth")
+    if os.path.exists(os.environ.get("RAFT_CHECKPOINT", "")):
+        print(f"raft weights: checkpoint {os.environ['RAFT_CHECKPOINT']}")
+    else:
+        os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+        torch.save(raft.seeded_init_(raft.RAFT(), seed).state_dict(), ckpt)
+        print(f"raft weights: seeded random (seed {seed}), saved in the checkpoint layout")
+    proc = DatasetProcessor(PipelineConfig(path=base), device=device)
+    model = proc._flow_model()
+    if iters is not None:
+        model.iters = iters
+    if dtype is not None:
+        model.set_dtype(dtype)
+    print(f"raft: {sum(p.numel() for p in model.parameters())} parameters, "
+          f"{model.iters} iterations, {model.dtype}")
+    store = VideoStore.open(base)
+    stage = FlowStage(store, *proc._flow_model_pair(), batch_size=16, device=device)
+    pairs = stage.sample_index_pairs(("hierarchical2",), n_frames)
+    down_hw = store.load_color_down().shape[1:3]
+    flow_hw = stage.load_chunk(pairs[:1])[0].shape[1:3]
+    print(f"flow stage: {len(pairs)} pairs, color_flow {flow_hw[0]}x{flow_hw[1]}, "
+          f"color_down {down_hw[0]}x{down_hw[1]}, chunks of {stage.batch_size}")
+
+    corner.corner_min_eigenval.launches = 0
+    t0 = time.perf_counter()
+    stage.compute_flow(pairs)
+    sync()
+    print(f"stage compute_flow_s {time.perf_counter() - t0:.3f} "
+          + " ".join(f"{k} {v:.3f}" for k, v in stage.stats.items()))
+    launches = corner.corner_min_eigenval.launches
+    t0 = time.perf_counter()
+    stage.compute_flow_masks(pairs)
+    sync()
+    print(f"stage compute_flow_masks_s {time.perf_counter() - t0:.3f}")
+    t0 = time.perf_counter()
+    entries = stage.compute_flow_pair_stats(pairs)
+    print(f"stage flow_pair_stats_s {time.perf_counter() - t0:.3f}")
+
+    flow_dir = os.path.join(base, "flow")
+    files = sorted(os.listdir(flow_dir))
+    mags = []
+    for (i, j) in pairs:
+        f = raw.load_raw_float32_image(os.path.join(flow_dir, f"flow_{i:06d}_{j:06d}.raw"))
+        if f.shape != tuple(down_hw) + (2,) or not np.isfinite(f).all():
+            raise AssertionError(f"flow {i}->{j}: shape {f.shape} or non-finite values")
+        mags.append(float(np.abs(f).mean()))
+    if len(files) != len(pairs):
+        raise AssertionError(f"{len(files)} flow files for {len(pairs)} pairs")
+    unordered = {(min(p), max(p)) for p in pairs}
+    masks = os.listdir(os.path.join(base, "flow_mask"))
+    if len(masks) != 2 * len(unordered):
+        raise AssertionError(f"{len(masks)} mask files for {len(unordered)} unordered pairs")
+    listed = json.load(open(os.path.join(base, "flow_list.json")))
+    if len(listed) != len(pairs) + 1 or len(entries) != len(pairs):
+        raise AssertionError(f"flow_list.json holds {len(listed) - 1} pairs for {len(pairs)}")
+    ratios = [e[2] for e in entries]
+    print(f"outputs: {len(files)} finite flows at {down_hw[0]}x{down_hw[1]} (mean |flow| "
+          f"{np.mean(mags):.4f} px), masks of {len(unordered)} unordered pairs, "
+          f"{len(listed) - 1} pairs in flow_list.json (mask ratio mean {np.mean(ratios):.4f}, "
+          f"min {min(ratios):.4f}, max {max(ratios):.4f})")
+    print(f"corner_min_eigenval launches on the flow path: {launches} "
+          f"({-(-len(pairs) // stage.batch_size)} chunks, one launch a chunk over both stacks)")
+
+    shift_px = SHIFT * flow_hw[1] / W
+    hits, n, worst = registration_truth(stage.homographies, flow_hw, shift_px)
+    want = JAX_REGISTRATION_SHARE if min_share is None else min_share
+    print(f"registration vs truth: {hits} of {n} pairs with |i - j| * {shift_px:g} <= 96 px "
+          f"map the centre within 1 px (share {hits / max(n, 1):.4f}, worst {worst:.4f} px; "
+          f"the JAX package on the CPU: {want:.4f})")
+    if n == 0 or hits / n < want:
+        raise AssertionError("registration fell short of the JAX package's share")
+    return launches, stage
+
+
+def exact_mask_check(base: str, n_frames: int, seed: int, device: str = "cuda") -> None:
+    """The mask program on make_clip's exact flows, in a copy of its store
+    without flow_mask/, must reproduce make_clip's in-bounds masks bit for
+    bit (the targets land on whole pixels; colours match exactly there)."""
+    from robust_cvd_tpu_torch.io.store import VideoStore, load_png_gray
+    from robust_cvd_tpu_torch.pipeline.flow import FlowStage
+
+    make_clip(base, n_frames, seed)
+    os.rename(os.path.join(base, "flow_mask"), os.path.join(base, "flow_mask_made"))
+    store = VideoStore.open(base)
+    pairs = [(i, j) for (i, j, _) in store.load_flow_list()]
+    t0 = time.perf_counter()
+    FlowStage(store, None, device=device).compute_flow_masks(pairs)
+    dt = time.perf_counter() - t0
+    names = sorted(os.listdir(os.path.join(base, "flow_mask_made")))
+    differ = [n for n in names if not np.array_equal(
+        load_png_gray(os.path.join(base, "flow_mask", n)),
+        load_png_gray(os.path.join(base, "flow_mask_made", n)))]
+    print(f"mask program on exact flows: {len(names) - len(differ)} of {len(names)} masks "
+          f"equal to the in-bounds masks bit for bit ({dt:.3f} s)")
+    if differ or len(os.listdir(os.path.join(base, "flow_mask"))) != len(names):
+        raise AssertionError(f"masks differ: {differ[:5]}")
+
+
+def raft_device_check(seed: int) -> None:
+    """Seeded RAFT at float32, 3 iterations, on 2 pairs at 64x96, on the
+    card and on the CPU, TF32 off on both: flows within RAFT_TOL (the CPU's
+    float32 net differs from its float64 net by 3.7e-6 px at max|flow|
+    0.53, so the tolerance leaves ~25x)."""
+    import torch
+
+    from robust_cvd_tpu_torch.device import float32_precision
+    from robust_cvd_tpu_torch.models import raft
+
+    net = raft.seeded_init_(raft.RAFT(iters=3, dtype=torch.float32), seed).eval()
+    rng = np.random.default_rng(seed)
+    ims = [torch.from_numpy(rng.uniform(0, 255, (2, 3, 64, 96)).astype(np.float32))
+           for _ in range(2)]
+    with torch.no_grad(), float32_precision(cudnn_tf32=False):
+        cpu = net(*ims)
+        gpu = net.cuda()(*[x.cuda() for x in ims]).cpu()
+    err = (gpu - cpu).abs().max().item()
+    tol = RAFT_TOL[0] * cpu.abs().max().item() + RAFT_TOL[1]
+    print(f"raft, card vs CPU (float32, no TF32, 3 iterations, 2 pairs at 64x96): max|err| "
+          f"{err:.3e} px (tolerance {tol:.3e}; max|flow| {cpu.abs().max().item():.4f})")
+    if not err <= tol:
+        raise AssertionError("RAFT on the card disagrees with the CPU")
+
+
+def flow_card_checks(stage) -> None:
+    """register_pairs on 4 pairs of the flow store, card vs CPU (H within
+    1e-3); the card's bf16-vs-float32 RAFT difference on the first chunk
+    at full size (printed, not checked)."""
+    import torch
+
+    from robust_cvd_tpu_torch.device import float32_precision
+    from robust_cvd_tpu_torch.ops.homography import register_pairs
+
+    n = stage.store.num_frames
+    pairs = [(0, 1), (0, min(4, n - 1)), (min(10, n - 1), 2), (min(50, n - 1), min(30, n - 1))]
+    im1, im2 = stage.load_chunk(pairs)
+    gpu, _ = register_pairs(im1[:4], im2[:4])
+    cpu, _ = register_pairs(im1[:4].cpu(), im2[:4].cpu())
+    err = (gpu.cpu() - cpu).abs().max().item()
+    print(f"register_pairs, card vs CPU on pairs {pairs}: H max|err| {err:.3e} "
+          f"(tolerance 1e-3)")
+    if not err <= 1e-3:
+        raise AssertionError("registration on the card disagrees with the CPU")
+
+    model = stage.model
+    im1, im2 = stage.load_chunk(stage.sample_index_pairs(("hierarchical2",), n)[: stage.batch_size])
+    a, b = im1.permute(0, 3, 1, 2) * 255.0, im2.permute(0, 3, 1, 2) * 255.0
+    with torch.no_grad(), float32_precision(cudnn_tf32=False):
+        bf16 = model.set_dtype(torch.bfloat16)(a, b)
+        f32 = model.set_dtype(torch.float32)(a, b)
+    model.set_dtype(torch.bfloat16)
+    d = (bf16 - f32).abs()
+    print(f"raft bf16 vs float32 on the card ({a.shape[0]} pairs at {a.shape[2]}x{a.shape[3]}, "
+          f"{model.iters} iterations, no registration): max|diff| {d.max().item():.4f} px, "
+          f"mean {d.mean().item():.5f} px, mean|flow| {f32.abs().mean().item():.4f} px")
+
+
+def corner_flow_entry(stage, launches: int) -> dict:
+    """The corner kernel at the registration's shape: both gray stacks of
+    the first chunk, (2 x batch, H, W), as register_pairs launches it;
+    checked against its plain version and timed as on the pose path."""
+    import torch
+
+    pairs = stage.sample_index_pairs(("hierarchical2",), stage.store.num_frames)
+    rgb = torch.stack(stage.load_chunk(pairs[: stage.batch_size]))
+    gray = 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+    gray = gray.reshape(-1, *gray.shape[2:]).contiguous()
+    entry = corner_entry(gray, corner_check(gray, f"{tuple(gray.shape)} registration"))
+    keep = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "gbps", "share_of_bound")
+    return {"shape": list(gray.shape), "launches": launches, **{k: entry[k] for k in keep}}
+
+
+def _device_events(prof):
+    """The profiler's device kernels (user-annotation spans left out)."""
+    import torch
+
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("flow.", "raft."))]
+
+
+def _time_by_name(kernels) -> dict:
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+    return by_name
+
+
+def _busy_us(kernels):
+    """(busy, window) in us: the union of the kernels' spans, and from the
+    first start to the last end."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    return busy + cur_e - cur_s, spans[-1][1] - spans[0][0]
+
+
+def flow_profile_phase(stage, reps: int = 3) -> None:
+    """torch.profiler over one steady-state 16-pair chunk of compute_flow
+    (registration, RAFT, post-process): ms per chunk, the top device
+    kernels, the correlation lookup's share, the device idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    pairs = stage.sample_index_pairs(("hierarchical2",), stage.store.num_frames)
+    ims = stage.load_chunk(pairs[: stage.batch_size])
+    out_hw = stage.store.load_color_down().shape[1:3]
+    for _ in range(2):
+        stage.flow_chunk(*ims, out_hw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        stage.flow_chunk(*ims, out_hw)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        stage.flow_chunk(*ims, out_hw)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernels = _device_events(prof)
+    if not kernels:
+        print(f"flow profile: the profiler recorded no device time; a chunk took "
+              f"{plain * 1e3:.2f} ms (host clock, synchronised); idle share not measured")
+        return
+    by_name = _time_by_name(kernels)
+    busy, window = _busy_us(kernels)
+    total = sum(by_name.values())
+    print(f"flow profile: one chunk of {stage.batch_size} pairs, {plain * 1e3:.2f} ms unprofiled "
+          f"(host clock, mean of {reps}), {wall * 1e3:.2f} ms profiled, device busy "
+          f"{busy / 1e3:.2f} ms, {len(kernels)} device kernels; device idle share "
+          f"{1 - busy / window:.4f} of the {window / 1e3:.2f} ms kernel window, "
+          f"{1 - busy / 1e3 / (plain * 1e3):.4f} of the unprofiled chunk")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"flow profile top: {t / 1e3:8.3f} ms {t / total:7.2%}  {name[:110]}")
+    cpu_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    for rng_name in ("flow.register", "flow.raft", "raft.lookup_corr", "flow.postproc"):
+        dev = sum(getattr(e, "device_time_total", 0.0) for e in cpu_events if e.name == rng_name)
+        share = f"{dev / total:.2%} of device kernel time" if dev else "not measured"
+        print(f"flow profile range {rng_name}: device kernels {dev / 1e3:.3f} ms, {share}")
 
 
 def main() -> int:
@@ -797,14 +1135,28 @@ def main() -> int:
     adam_k = adam_phase(n_params, args.seed)
     solver_phase(args.seed)
     step_phase(args.seed)
+    raft_device_check(args.seed)
+    launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_clip_") as base:
-        corner_k["launches"], depth, net = path_phase(base, args.frames, args.seed)
-        if corner_k["launches"] < 1:
+        launches["pose"], depth, net = path_phase(base, args.frames, args.seed)
+        if launches["pose"] < 1:
             raise AssertionError("the corner kernel was not launched on the pose path")
         tuner, adam_k["launches"] = finetune_phase(base, depth, net, args.seed, args.epochs)
         if adam_k["launches"] < 1:
             raise AssertionError("the Adam kernel was not launched on the fine-tune path")
         profile_phase(tuner)
+    del tuner, net, depth
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_flow_") as base:
+        launches["flow"], stage = flow_phase(os.path.join(base, "clip"), args.frames, args.seed)
+        if launches["flow"] < 1:
+            raise AssertionError("the corner kernel was not launched on the flow path")
+        exact_mask_check(os.path.join(base, "exact"), args.frames, args.seed)
+        flow_card_checks(stage)
+        corner_k["flow_path"] = corner_flow_entry(stage, launches["flow"])
+        flow_profile_phase(stage)
+    corner_k["launches"] = launches["pose"] + launches["flow"]
+    corner_k["launches_by_path"] = launches
     print(f"total_s {time.perf_counter() - t_start:.3f}")
     print(json.dumps({"kernels": [corner_k, adam_k]}))
     print(smi)

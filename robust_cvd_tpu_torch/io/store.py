@@ -34,22 +34,43 @@ def mask_name(i: int, j: int) -> str:
     return f"mask_{i:06d}_{j:06d}.png"
 
 
+def _exif_rotate(im):
+    """EXIF orientation tag 274 -> counter-clockwise rotation, exactly the
+    three cases the reference handles (utils/image_io.py:64-84: 8 -> 90,
+    6 -> 270, 3 -> 180; the mirrored orientations are ignored there too)."""
+    angle = {8: 90, 6: 270, 3: 180}.get(im.getexif().get(274, 1), 0)
+    return im.rotate(angle, expand=True) if angle else im
+
+
 def load_png_gray(path) -> np.ndarray:
-    """Gray PNG as uint8, after the EXIF rotations the reference applies
-    (utils/image_io.py:64-84: orientation 8 -> 90, 6 -> 270, 3 -> 180)."""
+    """Gray PNG as uint8, after the reference's EXIF rotations."""
     from PIL import Image
 
     with Image.open(path) as im:
-        angle = {8: 90, 6: 270, 3: 180}.get(im.getexif().get(274, 1), 0)
-        if angle:
-            im = im.rotate(angle, expand=True)
-        return np.asarray(im.convert("L"))
+        return np.asarray(_exif_rotate(im).convert("L"))
 
 
 def save_png_gray(path, img: np.ndarray) -> None:
     from PIL import Image
 
     Image.fromarray(np.asarray(img, np.uint8), mode="L").save(path)
+
+
+def save_png_color(path, img: np.ndarray) -> None:
+    """img: (H, W, 3) float in [0, 1] (rounded to uint8) or uint8."""
+    from PIL import Image
+
+    if img.dtype != np.uint8:
+        img = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    Image.fromarray(img, mode="RGB").save(path)
+
+
+def load_png_color(path) -> np.ndarray:
+    """RGB PNG as float32 in [0, 1], after the reference's EXIF rotations."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(_exif_rotate(im).convert("RGB"), np.float32) / 255.0
 
 
 class VideoStore:
@@ -61,6 +82,7 @@ class VideoStore:
         self.base_dir = base_dir
         self.meta = meta
         self.color_down: Optional[np.ndarray] = None  # (N, h, w, 3)
+        self.color_full: Optional[np.ndarray] = None  # (N, H, W, 3)
         self.dynamic_mask: Optional[np.ndarray] = None  # (N, h, w) uint8
         self.depth_streams: Dict[str, np.ndarray] = {}  # name -> (N, h, w)
         self.flows: Dict[Tuple[int, int], np.ndarray] = {}
@@ -96,6 +118,16 @@ class VideoStore:
                 ]
             )
         return self.color_down
+
+    def load_color_full(self) -> np.ndarray:
+        if self.color_full is None:
+            self.color_full = np.stack(
+                [
+                    load_png_color(pjoin(self.base_dir, "color_full", frame_name(i, ".png")))
+                    for i in range(self.num_frames)
+                ]
+            )
+        return self.color_full
 
     def load_dynamic_mask(self) -> Optional[np.ndarray]:
         d = pjoin(self.base_dir, "dynamic_mask")
@@ -136,6 +168,17 @@ class VideoStore:
         self.depth_streams[stream] = np.asarray(depth)
 
     # -- flow ----------------------------------------------------------------
+
+    def flow_pairs(self) -> List[Tuple[int, int]]:
+        """The (i, j) of every flow/flow_i_j.raw, sorted by name."""
+        d = pjoin(self.base_dir, "flow")
+        pairs = []
+        if os.path.isdir(d):
+            for name in sorted(os.listdir(d)):
+                if name.startswith("flow_") and name.endswith(".raw"):
+                    a, b = name[5:-4].split("_")
+                    pairs.append((int(a), int(b)))
+        return pairs
 
     def load_flow(self, i: int, j: int) -> np.ndarray:
         key = (i, j)

@@ -1,12 +1,14 @@
 """Pipeline orchestrator: the `DatasetProcessor`.
 
 Port of robust_cvd_tpu/pipeline/process.py (reference process.py:52-240).
-Ported so far: the experiment directory, the MiDaS model and the
-fine-tune stage (`fine_tune(store, depth)`: pose constraints, the cold
-solve, the epochs of training with depth refreshes and warm re-solves, the
-fine-tuned depth stream and video.dat). The whole pipeline (frame
-extraction, flow, masks) and the RAFT model come with the flow slice and
-raise NotImplementedError.
+Ported so far: the experiment directory, the MiDaS and RAFT models (from
+their checkpoints, on the processor's device) and the fine-tune stage
+(`fine_tune(store, depth)`: pose constraints, the cold solve, the epochs of
+training with depth refreshes and warm re-solves, the fine-tuned depth
+stream and video.dat). The flow stage itself is
+`pipeline/flow.py::FlowStage`; the whole pipeline (`pipeline()`: frame
+extraction, the stages in order, stage tracing) comes with the
+orchestration slice and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,13 +24,17 @@ from ..device import resolve_device
 from ..io.store import VideoStore
 from .pose import PoseOptimizer
 
+FLOW_MAX_SIZE = 1024  # reference flow.py:40-42
+FLOW_ALIGN = 64
+
 
 class DatasetProcessor:
     def __init__(self, cfg: PipelineConfig, models: dict | None = None,
                  device="cuda"):
-        """models: optional dict with a 'depth' entry (a MidasV2Adapter),
-        loaded from the checkpoint otherwise. `device` is where every stage
-        runs ("cuda" unless the caller asks for "cpu")."""
+        """models: optional dict with 'depth' (a MidasV2Adapter) and 'flow'
+        (a RAFT) entries, loaded from their checkpoints otherwise. `device`
+        is where every stage runs ("cuda" unless the caller asks for
+        "cpu")."""
         self.cfg = cfg
         self.models = models or {}
         self.device = resolve_device(device)
@@ -60,11 +66,34 @@ class DatasetProcessor:
         return self.models["depth"]
 
     def _flow_model(self):
-        raise NotImplementedError("RAFT is not ported yet (flow slice)")
+        """RAFT (bf16, 20 iterations) with <path>/models/raft-things.pth or
+        RAFT_CHECKPOINT, on the processor's device."""
+        if "flow" not in self.models:
+            from ..models import raft
+
+            ckpt = pjoin(self.cfg.path, "models", "raft-things.pth")
+            if not os.path.exists(ckpt):
+                ckpt = os.environ.get("RAFT_CHECKPOINT", "")
+            if not ckpt or not os.path.exists(ckpt):
+                raise FileNotFoundError(
+                    "RAFT checkpoint not found; set RAFT_CHECKPOINT or place "
+                    "models/raft-things.pth under --path"
+                )
+            net = raft.RAFT()
+            net.load_state_dict(raft.load_checkpoint(ckpt))
+            self.models["flow"] = net.to(self.device).eval()
+        return self.models["flow"]
+
+    def _flow_model_pair(self):
+        """(RAFT module, weights to load into it or None): the arguments
+        FlowStage takes after the store."""
+        m = self._flow_model()
+        return (m[0], m[1]) if isinstance(m, tuple) else (m, None)
 
     def pipeline(self):
         raise NotImplementedError(
-            "the whole pipeline (frames, flow, masks) is not ported yet (flow slice)"
+            "the whole pipeline (frames, stages in order, tracing) is not ported yet "
+            "(orchestration slice)"
         )
 
     def fine_tune(self, store: VideoStore, depth: np.ndarray):
