@@ -41,10 +41,10 @@ Phases, each of which raises on failure (exit code 1):
    and that every LM solve ended below its starting cost.
 6. fine-tune path: DatasetProcessor(...).fine_tune(store, depth) on the same
    clip (the cached flow_constraints.dat is reused) with the full-width
-   MiDaS-v2 and the default FineTuneParams and LossParams (--epochs cuts
-   the 10 epochs): the cold solve, the epochs of training (one Adam kernel
-   launch per step), a depth refresh and a warm re-solve after each epoch,
-   the fine-tuned depth stream and video.dat. Checks finite losses, Adam
+   MiDaS-v2 and the default FineTuneParams and LossParams but 2 epochs
+   (the pipeline phase runs the 10): the cold solve, the epochs of
+   training (one Adam kernel launch per step), a depth refresh and a warm
+   re-solve after each epoch, the fine-tuned depth stream and video.dat. Checks finite losses, Adam
    launches equal to the train steps with none skipped, the cold solve
    below its start and every warm solve at or below its start, finite
    outputs, and parameters that moved.
@@ -75,9 +75,24 @@ Phases, each of which raises on failure (exit code 1):
    compute_flow: ms per chunk, the top 10 device kernels, the device time
    of registration, RAFT, the correlation lookup and the post-process, the
    device idle share.
+12. pipeline: the whole schedule through the port's CLI,
+   robust_cvd_tpu_torch.main.main(["--path", clip]) with every default but
+   --num_epochs (--epochs, 10 by default), on a third clip of
+   panning_frames given as color_full PNGs only (no frames.txt), with
+   seeded full-width MiDaS-v2 and RAFT checkpoints under <clip>/models/
+   (RAFT's last flow-head convolution zeroed: pipeline_checkpoints says
+   why): frames, three downscales, initial depth, compute_flow (572 pairs),
+   masks, pair stats, motion-segmentation dynamic masks, constraints, the
+   cold solve, the epochs with warm re-solves, video.dat and
+   stage_timings.json. Checks the result tree, each close pair's flow
+   against the true shift (median within 1 px) and its mask ratio against
+   its in-bounds share (within 0.02), dynamic masks at least 99% static,
+   the corner kernel launched at least once a flow chunk plus once for the
+   constraints, one Adam launch a train step with none skipped, and the
+   solves. Prints the stage table and pipeline_s_per_frame.
 
-Prints per-stage seconds, a {"kernels": [...]} line (the corner kernel's
-entry carries the launches of both paths and, under "flow_path", its
+Prints per-stage seconds, a {"kernels": [...]} line (each kernel's entry
+carries its launches by path; the corner kernel's, under "flow_path", its
 numbers at the registration's shape), the nvidia-smi line, and as its last
 line {"ok": true, "device": {...}}.
 """
@@ -1104,12 +1119,176 @@ def flow_profile_phase(stage, reps: int = 3) -> None:
         print(f"flow profile range {rng_name}: device kernels {dev / 1e3:.3f} ms, {share}")
 
 
+def pipeline_clip(base: str, n: int, seed: int) -> None:
+    """A clip as a user hands it to the CLI without a video file: color_full
+    PNGs of panning_frames and nothing else (no frames.txt)."""
+    from robust_cvd_tpu_torch.io.store import frame_name, save_png_color
+
+    os.makedirs(os.path.join(base, "color_full"))
+    for i, frame in enumerate(panning_frames(n, seed)):
+        save_png_color(os.path.join(base, "color_full", frame_name(i, ".png")), frame)
+
+
+def pipeline_checkpoints(base: str, seed: int) -> None:
+    """Seeded MiDaS-v2 and RAFT weights in the layout the CLI loads from
+    <clip>/models/. RAFT's last flow-head convolution is zeroed: every layer,
+    the correlation pyramid and all iterations still run, but its flow in
+    the registered frame is exactly 0, so the stage's flow is the
+    registration homography and its consistency masks cover the in-bounds
+    area (random flow heads give near-empty masks)."""
+    import torch
+
+    from robust_cvd_tpu_torch.models import midas, raft
+
+    os.makedirs(os.path.join(base, "models"))
+    torch.save(midas.seeded_init_(midas.MidasNet(), seed).state_dict(),
+               os.path.join(base, "models", "midas_v21-f6b98070.pt"))
+    net = raft.seeded_init_(raft.RAFT(), seed)
+    with torch.no_grad():
+        net.update_block.flow_head.conv2.weight.zero_()
+        net.update_block.flow_head.conv2.bias.zero_()
+    torch.save(net.state_dict(), os.path.join(base, "models", "raft-things.pth"))
+
+
+PIPELINE_SPANS = ("extract_frames", "downscale_frames", "load_models", "compute_initial_depth",
+                  "compute_initial_depth/first_dispatch_s", "compute_flow",
+                  "compute_flow/load_s", "compute_flow/chunk_s", "compute_flow/write_s",
+                  "compute_flow_masks", "compute_dynamic_mask", "fine_tune",
+                  "fine_tune/setup_s", "fine_tune/pose_opt_s", "fine_tune/train_steps_s",
+                  "fine_tune/refresh_s", "fine_tune/persist_io_s")
+
+
+def pipeline_phase(base: str, n_frames: int, seed: int, epochs: int, device: str = "cuda",
+                   argv=()):
+    """The whole pipeline through the CLI, `main(["--path", clip])` with every
+    default but --num_epochs (and `argv`, which cuts the solver for a CPU
+    run), on a clip of color_full PNGs, with the checkpoints of
+    pipeline_checkpoints. Checks the result tree, the flows against the
+    true shift, the kernels' launches on this path and the solves. Returns
+    the corner and Adam kernels' launches and the DatasetProcessor."""
+    import torch
+
+    from robust_cvd_tpu_torch.io import raw
+    from robust_cvd_tpu_torch.io.store import VideoStore, load_png_gray
+    from robust_cvd_tpu_torch.io.video_dat import load_video_dat
+    from robust_cvd_tpu_torch.main import main as cli_main
+    from robust_cvd_tpu_torch.ops import adam, corner
+    from robust_cvd_tpu_torch.utils.frame_sampling import sample_pairs
+
+    t0 = time.perf_counter()
+    pipeline_clip(base, n_frames, seed)
+    pipeline_checkpoints(base, seed)
+    print(f"stage pipeline_clip_build_s {time.perf_counter() - t0:.3f}")
+
+    corner.corner_min_eigenval.launches = 0
+    adam.adam_update.launches = 0
+    t0 = time.perf_counter()
+    proc = cli_main(["--path", base, "--num_epochs", str(epochs), *argv], device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {"corner": corner.corner_min_eigenval.launches, "adam": adam.adam_update.launches}
+    for name, sec in proc.tracer.summary().items():
+        print(f"pipeline stage {name} {sec:.3f}")
+    print(f"pipeline_s {total:.3f}")
+    print(f"pipeline_s_per_frame {total / n_frames:.4f}")
+
+    def count(sub, ext):
+        d = os.path.join(base, sub)
+        return len([f for f in os.listdir(d) if f.endswith(ext)]) if os.path.isdir(d) else 0
+
+    store = VideoStore.open(base)
+    down_hw = store.load_color_down().shape[1:3]
+    for sub, ext in (("color_down", ".raw"), ("color_down_png", ".png"), ("color_flow", ".png"),
+                     ("depth_midas2/depth", ".raw"), ("dynamic_mask", ".png")):
+        if count(sub, ext) != n_frames:
+            raise AssertionError(f"{count(sub, ext)} frames in {sub} for {n_frames}")
+    listed = [tuple(e[:2]) for e in store.load_flow_list()]
+    n_pairs = len(listed)
+    if sorted(listed) != sorted(sample_pairs(n_frames, ("hierarchical2",), two_way=True)):
+        raise AssertionError(f"flow_list.json holds {n_pairs} pairs, not the hierarchical2 ones")
+    if count("flow", ".raw") != n_pairs or count("flow_mask", ".png") != n_pairs:
+        raise AssertionError(f"{count('flow', '.raw')} flows and {count('flow_mask', '.png')} "
+                             f"masks for {n_pairs} pairs in flow_list.json")
+
+    # flows and masks against the truth: frame j is frame i moved
+    # (j - i) * SHIFT px to the left, scaled to color_down's width
+    shift = SHIFT * down_hw[1] / W
+    xs = np.arange(down_hw[1], dtype=np.float32)
+    worst_flow, worst_ratio, checked = 0.0, 0.0, 0
+    for (i, j, ratio) in store.load_flow_list():
+        if abs(i - j) * SHIFT > 96:
+            continue
+        dx = (i - j) * shift
+        flow = store.load_flow(i, j)
+        err = float(np.median(np.hypot(flow[..., 0] - dx, flow[..., 1])))
+        target = np.floor(xs + dx + 0.5)
+        share = float(np.mean((target >= 0) & (target < down_hw[1])))
+        worst_flow = max(worst_flow, err)
+        worst_ratio = max(worst_ratio, abs(ratio - share))
+        checked += 1
+    print(f"pipeline flows vs truth: {checked} pairs with |i - j| * {SHIFT} <= 96 px, worst "
+          f"median |flow - shift| {worst_flow:.4f} px (tolerance 1), worst |mask ratio - "
+          f"in-bounds share| {worst_ratio:.4f} (tolerance 0.02)")
+    if checked == 0 or not worst_flow <= 1.0 or not worst_ratio <= 0.02:
+        raise AssertionError("the pipeline's flows or masks disagree with the true shift")
+    static = [float(np.mean(load_png_gray(os.path.join(base, "dynamic_mask", f)) == 255))
+              for f in sorted(os.listdir(os.path.join(base, "dynamic_mask")))]
+    print(f"pipeline dynamic masks: static share min {min(static):.4f}, mean "
+          f"{np.mean(static):.4f} (a rigid pan: at least 0.99)")
+    if min(static) < 0.99:
+        raise AssertionError("a dynamic mask marks more than 1% of a rigid pan as moving")
+    if not os.path.exists(os.path.join(base, "flow_constraints.dat")):
+        raise AssertionError("no flow_constraints.dat")
+
+    tuner = proc.tuner
+    streams = [s.name for s in load_video_dat(os.path.join(base, "video.dat")).depth_streams]
+    if streams[:1] != ["depth_midas2"] or "fine_tuned" not in streams:
+        raise AssertionError(f"video.dat streams {streams}")
+    depth_dir = os.path.join(tuner.out_dir, "depth")
+    disp = [raw.load_raw_float32_image(os.path.join(depth_dir, f))
+            for f in sorted(os.listdir(depth_dir)) if f.endswith(".raw")]
+    if len(disp) != n_frames or not all(np.isfinite(d).all() for d in disp):
+        raise AssertionError(f"{len(disp)} fine-tuned depth frames, or non-finite ones")
+    timings = json.load(open(os.path.join(proc.out_dir(n_frames), "stage_timings.json")))
+    missing = [s for s in PIPELINE_SPANS if s not in timings["summary"]]
+    if missing:
+        raise AssertionError(f"stage_timings.json lacks {missing}")
+
+    steps = sum(h["steps"] for h in tuner.history)
+    skipped = sum(h["skipped"] for h in tuner.history)
+    want_corner = 1 + -(-n_pairs // 16) if device == "cuda" else 0
+    want_adam = steps if device == "cuda" else 0
+    print(f"pipeline launches: corner_min_eigenval {launches['corner']} ({-(-n_pairs // 16)} flow "
+          f"chunks and the constraint build), adam {launches['adam']} for {steps} train steps, "
+          f"{skipped} skipped")
+    if launches["corner"] < want_corner or launches["adam"] != want_adam or skipped:
+        raise AssertionError("the pipeline path missed a kernel launch or skipped a step")
+    cold = [e for e in tuner.solve_log if e["stage"] != "warm"]
+    warm = [e for e in tuner.solve_log if e["stage"] == "warm"]
+    if not cold or len(warm) != epochs:
+        raise AssertionError(f"{len(cold)} cold and {len(warm)} warm solves for {epochs} epochs")
+    if not all(e["cost"] < e["cost0"] for e in cold) or not all(
+            e["cost"] <= e["cost0"] for e in warm):
+        raise AssertionError("a cold solve did not lower its cost or a warm one raised it")
+    print(f"pipeline outputs: {n_frames} frames, {n_pairs} flows and masks, {n_frames} dynamic "
+          f"masks, video.dat streams {streams}, {len(disp)} fine-tuned depth frames under "
+          f"{os.path.relpath(depth_dir, base)}; {len(cold)} cold solves below their start, "
+          f"{len(warm)} warm at or below")
+    for name, solves in (("cold", cold), ("warm", warm)):
+        print(f"pipeline {name} solves: {sum(e['outer'] for e in solves)} outer steps, "
+              f"{sum(e['cg'] for e in solves)} CG iterations, "
+              f"{sum(e['syncs'] for e in solves)} host syncs")
+    return launches, proc
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=100,
                     help="clip length (100 = the bench clip)")
     ap.add_argument("--epochs", type=int, default=10,
-                    help="fine-tune epochs (10 = the default FineTuneParams)")
+                    help="the pipeline phase's fine-tune epochs (10 = the default "
+                         "FineTuneParams); the fine-tune phase runs at most 2")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1141,8 +1320,9 @@ def main() -> int:
         launches["pose"], depth, net = path_phase(base, args.frames, args.seed)
         if launches["pose"] < 1:
             raise AssertionError("the corner kernel was not launched on the pose path")
-        tuner, adam_k["launches"] = finetune_phase(base, depth, net, args.seed, args.epochs)
-        if adam_k["launches"] < 1:
+        tuner, adam_fine_tune = finetune_phase(base, depth, net, args.seed,
+                                               min(2, args.epochs))
+        if adam_fine_tune < 1:
             raise AssertionError("the Adam kernel was not launched on the fine-tune path")
         profile_phase(tuner)
     del tuner, net, depth
@@ -1155,8 +1335,16 @@ def main() -> int:
         flow_card_checks(stage)
         corner_k["flow_path"] = corner_flow_entry(stage, launches["flow"])
         flow_profile_phase(stage)
-    corner_k["launches"] = launches["pose"] + launches["flow"]
+    del stage
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_") as base:
+        pipe, _ = pipeline_phase(os.path.join(base, "clip"), args.frames, args.seed,
+                                 args.epochs)
+    launches["pipeline"] = pipe["corner"]
+    corner_k["launches"] = sum(launches.values())
     corner_k["launches_by_path"] = launches
+    adam_k["launches_by_path"] = {"fine_tune": adam_fine_tune, "pipeline": pipe["adam"]}
+    adam_k["launches"] = adam_fine_tune + pipe["adam"]
     print(f"total_s {time.perf_counter() - t_start:.3f}")
     print(json.dumps({"kernels": [corner_k, adam_k]}))
     print(smi)

@@ -1,16 +1,20 @@
 """Configuration — one set of dataclasses for all pipeline parameters.
 
-A copy of the dataclasses of robust_cvd_tpu/config.py with identical
+A copy of robust_cvd_tpu/config.py: the dataclasses with identical
 defaults (reference lib/PoseOptimizer.h:54-108, loss/loss_params.py,
-depth_fine_tuning.py:52-117, params.py:29-264). The command-line parser
-comes with the CLI slice of the port.
+depth_fine_tuning.py:52-117, params.py:29-264) and the command-line parser
+with the same flags, dotted `--opt.*` names, defaults and validation, so
+command lines carry over between the two packages.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 from dataclasses import dataclass, field
 
 from .utils.frame_range import FrameRange
+from .utils.frame_sampling import SamplePairsMode
 
 STATIC_LOSS_TYPES = ("Euclidean", "ReproDisparity", "ReproDepthRatio", "ReproLogDepth")
 SMOOTH_LOSS_TYPES = (
@@ -34,7 +38,8 @@ class PoseOptParams:
     min(lm_max_outer, max_iterations) for cold solves and
     min(lm_warm_max_outer, max_iterations) for warm ones (pose_opt.py).
     `num_threads` is accepted for CLI compatibility but has no analog: the
-    solve runs on the GPU, not in the reference's 12 CPU threads.
+    solve runs on the GPU, not in the reference's 12 CPU threads; a
+    non-default value prints a warning at parse time.
     """
 
     max_iterations: int = 1000
@@ -205,3 +210,142 @@ class PipelineConfig:
 
     def resolved_frame_range(self, num_frames: int) -> FrameRange:
         return FrameRange(self.frame_range).resolve(num_frames)
+
+
+def _add_dataclass_args(parser, dc_type, prefix=""):
+    for f in dataclasses.fields(dc_type):
+        if dataclasses.is_dataclass(f.type) or f.name in ("opt", "loss", "ft"):
+            continue
+        name = f"--{prefix}{f.name}"
+        default = f.default if f.default is not dataclasses.MISSING else None
+        if default is None and f.default_factory is not dataclasses.MISSING:  # type: ignore
+            default = f.default_factory()  # type: ignore
+        if isinstance(default, bool):
+            parser.add_argument(name, type=_str2bool, default=default)
+        elif isinstance(default, tuple):
+            parser.add_argument(name, nargs="*", default=list(default))
+        elif isinstance(default, int):
+            parser.add_argument(name, type=int, default=default)
+        elif isinstance(default, float):
+            parser.add_argument(name, type=float, default=default)
+        else:
+            parser.add_argument(name, type=str, default=default)
+
+
+def _str2bool(v):
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError("Boolean value expected.")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="robust_cvd_tpu_torch",
+        description="Robust Consistent Video Depth on PyTorch and CUDA",
+    )
+    _add_dataclass_args(parser, PipelineConfig)
+    _add_dataclass_args(parser, PoseOptParams, prefix="opt.")
+    _add_dataclass_args(parser, LossParams, prefix="")
+    _add_dataclass_args(parser, FineTuneParams, prefix="")
+    return parser
+
+
+def parse_config(argv=None) -> PipelineConfig:
+    parser = build_parser()
+    ns = vars(parser.parse_args(argv))
+
+    def pick(dc_type, prefix=""):
+        kwargs = {}
+        for f in dataclasses.fields(dc_type):
+            key = f"{prefix}{f.name}"
+            if key in ns:
+                val = ns[key]
+                if isinstance(getattr(dc_type(), f.name, None), tuple) and isinstance(
+                    val, list
+                ):
+                    val = tuple(val)
+                kwargs[f.name] = val
+        return dc_type(**kwargs)
+
+    cfg = PipelineConfig(
+        **{
+            f.name: ns[f.name]
+            for f in dataclasses.fields(PipelineConfig)
+            if f.name in ns and f.name not in ("opt", "loss", "ft")
+        }
+    )
+    cfg = dataclasses.replace(
+        cfg,
+        flow_ops=tuple(cfg.flow_ops),
+        opt=pick(PoseOptParams, "opt."),
+        loss=pick(LossParams),
+        ft=pick(FineTuneParams),
+    )
+    for mode in cfg.flow_ops:
+        SamplePairsMode(mode)  # validate
+    if cfg.recon not in ("i3d", "colmap"):
+        # the reference parses "hd_depth" too (params.py:46-47) but has no
+        # code path for it
+        raise SystemExit(
+            f"--recon must be i3d or colmap, got {cfg.recon!r} "
+            "(hd_depth has no implementation in the reference either)"
+        )
+    if cfg.scaling not in ("extrinsics", "depth"):
+        raise SystemExit(
+            f"--scaling must be extrinsics or depth, got {cfg.scaling!r}"
+        )
+    if cfg.flow_model != "raft":
+        # reference params.py:90: choices=["raft"]
+        raise SystemExit(f"--flow_model must be raft, got {cfg.flow_model!r}")
+    if cfg.opt.num_threads != PoseOptParams().num_threads:
+        print(
+            f"warning: --opt.num_threads {cfg.opt.num_threads} has no "
+            "effect: the solve runs on the GPU, not in the reference's "
+            "multi-threaded CPU solve (lib/PoseOptimizer.h:57)"
+        )
+    if cfg.opt.value_xform not in ("Scale", "ScaleShift"):
+        raise SystemExit(
+            f"--opt.value_xform must be Scale or ScaleShift, got "
+            f"{cfg.opt.value_xform!r}"
+        )
+    if cfg.opt.static_loss_type not in STATIC_LOSS_TYPES:
+        raise SystemExit(
+            f"--opt.static_loss_type must be one of {STATIC_LOSS_TYPES}"
+        )
+    if cfg.opt.dynamic_constraints not in DYNAMIC_CONSTRAINT_MODES:
+        raise SystemExit(
+            f"--opt.dynamic_constraints must be one of {DYNAMIC_CONSTRAINT_MODES}"
+        )
+    return cfg
+
+
+def non_default_params(cfg: PipelineConfig) -> list:
+    """Lines describing every config value that differs from its default
+    (reference PRINT_PARAM_IF_NEQ, lib/core/ParamsBase.h:25-28: the C++
+    side prints only changed params at startup, so runs are reproducible
+    from the log)."""
+
+    def walk(obj, default, prefix=""):
+        lines = []
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            d = getattr(default, f.name)
+            if dataclasses.is_dataclass(v):
+                lines += walk(v, d, f"{prefix}{f.name}.")
+            elif v != d:
+                lines.append(f"{prefix}{f.name} = {v!r} (default {d!r})")
+        return lines
+
+    return walk(cfg, PipelineConfig(path=cfg.path))
+
+
+def echo_non_default(cfg: PipelineConfig) -> None:
+    lines = non_default_params(cfg)
+    if lines:
+        print("Non-default parameters:")
+        for ln in lines:
+            print(f"  {ln}")

@@ -105,6 +105,66 @@ class VideoStore:
     def inv_aspect(self) -> float:
         return self.meta.inv_aspect
 
+    # -- observability -------------------------------------------------------
+
+    def info_lines(self) -> List[str]:
+        """Container summary (reference DepthVideo::printInfo,
+        lib/DepthVideo.cpp:38-89): dimensions, frame count/duration, and the
+        color/depth streams present in the result tree."""
+        m = self.meta
+        dur = m.pts[-1] if m.pts else 0.0
+        lines = [
+            f"Path: {self.base_dir}",
+            f"Dimensions: {m.width} x {m.height} ({m.aspect:f} aspect ratio)",
+            f"Frame count: {m.num_frames} ({dur:.2f}s duration)",
+        ]
+        color_dirs = [
+            ("full", "color_full", ".png"),
+            ("down", "color_down", ".raw"),
+            ("down_png", "color_down_png", ".png"),
+            ("flow", "color_flow", ".png"),
+            ("dynamic_mask", "dynamic_mask", ".png"),
+        ]
+        present = [
+            (n, d, e) for (n, d, e) in color_dirs
+            if os.path.isdir(pjoin(self.base_dir, d))
+        ]
+        lines.append(f"Color streams: {len(present)}")
+        for i, (name, d, ext) in enumerate(present):
+            first = pjoin(self.base_dir, d, frame_name(0, ext))
+            dims = "?"
+            if os.path.exists(first):
+                if ext == ".raw":
+                    hdr = raw.read_raw_header(first)
+                    if hdr:
+                        dims = f"{hdr[1]} x {hdr[0]}"
+                else:
+                    from PIL import Image
+
+                    with Image.open(first) as im:
+                        dims = f"{im.width} x {im.height}"
+            lines.append(f"  {i:2d}: {name} ({dims})")
+            lines.append(f"      Path: {pjoin(self.base_dir, d)} ({ext})")
+        depth_dirs = sorted(
+            d for d in os.listdir(self.base_dir)
+            if os.path.isdir(pjoin(self.base_dir, d, "depth"))
+        )
+        lines.append(f"Depth streams: {len(depth_dirs)}")
+        for i, d in enumerate(depth_dirs):
+            first = pjoin(self.base_dir, d, "depth", frame_name(0, ".raw"))
+            dims = "?"
+            if os.path.exists(first):
+                hdr = raw.read_raw_header(first)
+                if hdr:
+                    dims = f"{hdr[1]} x {hdr[0]}"
+            lines.append(f"  {i:2d}: {d} ({dims})")
+            lines.append(f"      Path: {pjoin(self.base_dir, d, 'depth')}")
+        return lines
+
+    def print_info(self) -> None:
+        for ln in self.info_lines():
+            print(ln)
+
     # -- color ---------------------------------------------------------------
 
     def load_color_down(self) -> np.ndarray:

@@ -14,15 +14,19 @@ matched by one batched product; the homography is a DLT-RANSAC over a
 fixed table of 256 four-point hypotheses, all solved at once, then a
 weighted refit on the winner's inliers.
 
+The host numpy DLT-RANSAC (`find_homography_ransac`, with `_dlt` and
+`_apply_h_np`) is a copy of the JAX package's, for the motion
+segmentation of `pipeline/masks.py`.
+
 Not ported: the TPU's one-hot patch extraction (a gather here, as on the
-JAX package's CPU path). The numpy host helpers (detect_keypoints,
-patch_descriptors, match_ratio, find_homography_ransac) come with their
-only users, the mask and epipolar stages.
+JAX package's CPU path). The numpy keypoint helpers (detect_keypoints,
+patch_descriptors, match_ratio, warp_perspective) come with the slice of
+their other users.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -253,3 +257,70 @@ def unwarp_flow(flow_reg: np.ndarray, H_BA: np.ndarray) -> np.ndarray:
     z = out[:, 2:]
     unwarped = out[:, :2] / np.where(np.abs(z) > 1e-12, z, 1e-12)
     return (unwarped.reshape(h, w, 2) - pix).astype(np.float32)
+
+
+# -- host numpy DLT-RANSAC (a copy of the JAX package's, for pipeline/masks.py)
+
+
+def _full_u(A: np.ndarray) -> bool:
+    """Whether the SVD of A (..., m, 9) needs full_matrices to give the 9x9
+    V^T whose last row is the null vector: only where m < 9. For a tall A
+    (a refit on thousands of inliers) V^T is the same without it, bit for
+    bit (numpy's gesdd factors A by QR first either way), and the m x m U
+    is never built: 10,752 x 10,752 float64, 0.92 GB, for the homography
+    refit on every sampled point at 224x384 (the JAX package builds it)."""
+    return A.shape[-2] < A.shape[-1]
+
+
+def _dlt(ptsA: np.ndarray, ptsB: np.ndarray) -> np.ndarray:
+    """Direct linear transform: H mapping A -> B from >= 4 correspondences.
+    Batched over a leading hypothesis axis: (..., 4+, 2) -> (..., 3, 3)."""
+    x, y = ptsA[..., 0], ptsA[..., 1]
+    u, v = ptsB[..., 0], ptsB[..., 1]
+    zeros = np.zeros_like(x)
+    ones = np.ones_like(x)
+    rows1 = np.stack([x, y, ones, zeros, zeros, zeros, -u * x, -u * y, -u], -1)
+    rows2 = np.stack([zeros, zeros, zeros, x, y, ones, -v * x, -v * y, -v], -1)
+    A = np.concatenate([rows1, rows2], axis=-2)  # (..., 2n, 9)
+    _, _, vt = np.linalg.svd(A, full_matrices=_full_u(A))
+    h = vt[..., -1, :]
+    H = h.reshape(h.shape[:-1] + (3, 3))
+    return H / np.where(np.abs(H[..., 2:3, 2:3]) > 1e-12, H[..., 2:3, 2:3], 1.0)
+
+
+def _apply_h_np(H: np.ndarray, pts: np.ndarray) -> np.ndarray:
+    """(..., 3, 3) x (..., K, 2) -> (..., K, 2) on the host."""
+    ones = np.ones(pts.shape[:-1] + (1,), pts.dtype)
+    ph = np.concatenate([pts, ones], axis=-1)
+    out = np.einsum("...ij,...kj->...ki", H, ph)
+    return out[..., :2] / np.where(np.abs(out[..., 2:]) > 1e-12, out[..., 2:], 1e-12)
+
+
+def find_homography_ransac(
+    ptsA: np.ndarray,
+    ptsB: np.ndarray,
+    thresh: float = 4.0,
+    iters: int = 256,
+    seed: int = 0,
+) -> Optional[np.ndarray]:
+    """RANSAC homography A -> B (reference cv2.findHomography): all
+    hypotheses as one batched SVD and one batched reprojection, then a refit
+    on the best hypothesis' inliers. None below 4 points or inliers."""
+    n = len(ptsA)
+    if n < 4:
+        return None
+    rng = np.random.default_rng(seed)
+    sel = rng.integers(0, n, (iters, 4))
+    Hs = _dlt(ptsA[sel], ptsB[sel])  # (S, 3, 3)
+    proj = _apply_h_np(Hs, np.broadcast_to(ptsA, (iters, n, 2)))
+    err = np.linalg.norm(proj - ptsB[None], axis=-1)
+    inliers = err < thresh
+    counts = inliers.sum(axis=1)
+    best = int(np.argmax(counts))
+    if counts[best] < 4:
+        return None
+    mask = inliers[best]
+    H = _dlt(ptsA[mask], ptsB[mask])
+    if not np.all(np.isfinite(H)):
+        return None
+    return H.astype(np.float32)

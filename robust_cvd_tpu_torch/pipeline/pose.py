@@ -5,10 +5,12 @@ pose_optimization.py:98-326): builds flow constraints from the result
 folder (through the corner kernel on the card), caches them in
 `flow_constraints.dat`, sets static flags and runs the LM solver.
 
+Static flags come from the dynamic masks (dynamic_constraints="Mask") or
+from a RANSAC fundamental matrix per pair ("Ransac", ops/epipolar.py).
+
 Not ported yet, and raising NotImplementedError rather than doing nothing:
-the GT-depth / COLMAP importers and `save` (video.dat) come with the
-orchestration and CLI slice; `filter_depth` and dynamic_constraints="Ransac"
-with the slice that ports the remaining processors (ROADMAP.md).
+the GT-depth / COLMAP importers (importers slice) and `filter_depth` (the
+slice that ports the remaining processors; ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -71,26 +73,27 @@ class PoseOptimizer:
         ):
             raise NotImplementedError(
                 "importing GT depth / COLMAP streams is not ported yet "
-                "(orchestration and CLI slice)"
+                "(importers slice)"
             )
 
     # -- depth-stream registry (reference pose_optimization.py:242-326) -----
 
     def save_depth_to_last_stream(self, depth: np.ndarray) -> None:
         """Write (N, h, w) depth as disparity .raw files into the newest
-        stream (the reference's save_depth into self.depth_dir)."""
+        stream (the reference's save_depth into self.depth_dir), with their
+        colour maps beside them when ft.save_depth_visualization is set."""
         from ..io import raw
 
-        if self.cfg.ft.save_depth_visualization:
-            raise NotImplementedError(
-                "depth visualizations are not ported yet (processor slice)"
-            )
         d = pjoin(self.streams[-1].dir, "depth")
         os.makedirs(d, exist_ok=True)
         for i in range(self.store.num_frames):
             raw.save_raw_float32_image(
                 pjoin(d, f"frame_{i:06d}.raw"), raw.depth_to_disparity(depth[i])
             )
+        if self.cfg.ft.save_depth_visualization:
+            from ..utils.visualization import visualize_depth_dir
+
+            visualize_depth_dir(d, d)
 
     def duplicate_last_depth_stream(self, name: str, dir: str) -> DepthStreamRef:
         """Copy the newest stream's .raw files into `dir`, register the new
@@ -210,10 +213,6 @@ class PoseOptimizer:
     def _build_constraints(self):
         store = self.store
         opt = self.cfg.opt
-        if opt.dynamic_constraints == "Ransac":
-            raise NotImplementedError(
-                "dynamic_constraints='Ransac' is not ported yet (processor slice)"
-            )
         flow_list = store.load_flow_list()
         # FrameRange windows the constraint set (reference
         # pose_optimization.py:167, FlowConstraints.cpp:49-84)
@@ -247,6 +246,13 @@ class PoseOptimizer:
             C.set_static_flags(
                 pair_keys, pairs, triplet_keys, triplets, dyn_dist,
                 min_dynamic_distance=8.0,
+            )
+        elif opt.dynamic_constraints == "Ransac":
+            from ..ops.epipolar import set_static_flags_from_ransac
+
+            h, w = store.load_color_down().shape[1:3]
+            set_static_flags_from_ransac(
+                pair_keys, pairs, (h, w), store.inv_aspect, opt.epipolar_dist_thresh,
             )
 
         self.pair_keys = pair_keys

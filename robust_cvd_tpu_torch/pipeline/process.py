@@ -1,28 +1,35 @@
 """Pipeline orchestrator: the `DatasetProcessor`.
 
-Port of robust_cvd_tpu/pipeline/process.py (reference process.py:52-240).
-Ported so far: the experiment directory, the MiDaS and RAFT models (from
-their checkpoints, on the processor's device) and the fine-tune stage
-(`fine_tune(store, depth)`: pose constraints, the cold solve, the epochs of
-training with depth refreshes and warm re-solves, the fine-tuned depth
-stream and video.dat). The flow stage itself is
-`pipeline/flow.py::FlowStage`; the whole pipeline (`pipeline()`: frame
-extraction, the stages in order, stage tracing) comes with the
-orchestration slice and raises NotImplementedError.
+Port of robust_cvd_tpu/pipeline/process.py (reference process.py:52-240):
+extract -> downscale (three resolutions) -> initial depth -> flow (masks,
+pair stats) -> dynamic masks -> fine-tune, each stage timed by a
+StageTracer into `stage_timings.json`. Stages are idempotent: each checks
+for its outputs and skips (the reference's resumability contract,
+process.py:150-152). The models come from their checkpoints under
+`<path>/models/` and every stage runs on the processor's device.
+
+Not ported: Mask R-CNN dynamic masks (--mask_rcnn_weights raises
+NotImplementedError before the mask stage) and recon=colmap (the importers
+slice).
 """
 
 from __future__ import annotations
 
 import os
 import time
+import traceback
 from os.path import join as pjoin
 
 import numpy as np
 
-from ..config import PipelineConfig
+from ..config import PipelineConfig, echo_non_default
 from ..device import resolve_device
 from ..io.store import VideoStore
+from ..utils.experiment import StageTracer
+from .depth import compute_initial_depth
+from .flow import FlowStage
 from .pose import PoseOptimizer
+from .video import VideoStage
 
 FLOW_MAX_SIZE = 1024  # reference flow.py:40-42
 FLOW_ALIGN = 64
@@ -90,11 +97,98 @@ class DatasetProcessor:
         m = self._flow_model()
         return (m[0], m[1]) if isinstance(m, tuple) else (m, None)
 
-    def pipeline(self):
-        raise NotImplementedError(
-            "the whole pipeline (frames, stages in order, tracing) is not ported yet "
-            "(orchestration slice)"
-        )
+    def pipeline(self) -> VideoStore:
+        """Every stage in order on `cfg.path`; returns the clip's store and
+        keeps the StageTracer (`tracer`) and the FineTuner (`tuner`)."""
+        cfg = self.cfg
+        if cfg.mask_rcnn_weights and os.path.exists(cfg.mask_rcnn_weights) and (
+                cfg.opt.dynamic_constraints == "Mask"):
+            # raised here, not in the mask stage, whose handler would take
+            # it for a failed mask run and go on without masks
+            raise NotImplementedError(
+                "Mask R-CNN dynamic masks (--mask_rcnn_weights) are not ported yet "
+                "(Mask R-CNN slice)"
+            )
+        echo_non_default(cfg)  # PRINT_PARAM_IF_NEQ (core/ParamsBase.h:25-28)
+        tracer = self.tracer = StageTracer(device=self.device)
+        video = VideoStage(cfg.path, cfg.video_file)
+        with tracer.span("extract_frames"):
+            meta = video.extract_frames()
+
+        with tracer.span("downscale_frames"):
+            # --short_side_target applies to the training resolutions only
+            # (reference process.py:104-112)
+            video.downscale_frames(
+                "color_down", cfg.size, ".raw", cfg.align,
+                short_side_target=cfg.short_side_target,
+            )
+            video.downscale_frames(
+                "color_down_png", cfg.size, ".png", cfg.align,
+                short_side_target=cfg.short_side_target,
+            )
+            video.downscale_frames("color_flow", FLOW_MAX_SIZE, ".png", FLOW_ALIGN)
+
+        store = VideoStore.open(cfg.path)
+        store.print_info()  # reference DepthVideo::printInfo
+
+        with tracer.span("load_models"):
+            depth_model = self._depth_model()
+            self._flow_model_pair()
+
+        with tracer.span("compute_initial_depth"):
+            depth_stats: dict = {}
+            depth = compute_initial_depth(
+                store, depth_model, cfg.model_type, stats=depth_stats, device=self.device
+            )
+        for name, sec in depth_stats.items():
+            tracer.spans.append({"name": f"compute_initial_depth/{name}", "sec": sec})
+
+        flow_stage = FlowStage(store, *self._flow_model_pair(), device=self.device)
+        index_pairs = flow_stage.sample_index_pairs(cfg.flow_ops, meta.num_frames)
+        with tracer.span("compute_flow", pairs=len(index_pairs)):
+            flow_stage.compute_flow(index_pairs)
+        for name, sec in flow_stage.stats.items():
+            tracer.spans.append({"name": f"compute_flow/{name}", "sec": sec})
+        with tracer.span("compute_flow_masks"):
+            flow_stage.compute_flow_masks(index_pairs)
+        flow_stage.compute_flow_pair_stats(index_pairs)
+        if cfg.vis_flow:
+            with tracer.span("visualize_flow"):
+                flow_stage.visualize_flow(index_pairs)
+
+        # dynamic masks (the reference runs Mask R-CNN here, process.py:
+        # 147-165): geometric motion segmentation from the flow; external
+        # dynamic_mask/ frames take precedence
+        if cfg.opt.dynamic_constraints == "Mask":
+            from .masks import compute_dynamic_masks
+
+            with tracer.span("compute_dynamic_mask"):
+                if cfg.mask_rcnn_weights:
+                    print(f"--mask_rcnn_weights {cfg.mask_rcnn_weights!r} not found; "
+                          "falling back to motion segmentation")
+                try:
+                    compute_dynamic_masks(store)
+                except Exception as e:  # mask failures do not abort the pipeline
+                    traceback.print_exc()
+                    print(f"dynamic mask generation failed ({e!r}); continuing")
+
+        with tracer.span("fine_tune"):
+            tuner = self.tuner = self.fine_tune(store, depth)
+
+        out = self.out_dir(store.num_frames)
+        os.makedirs(out, exist_ok=True)
+        for name, sec in tuner.stats.items():
+            tracer.spans.append({"name": f"fine_tune/{name}", "sec": sec})
+        tracer.save(pjoin(out, "stage_timings.json"))
+        return store
+
+    def process(self):
+        """`op=extract_frames` extracts the frames only; otherwise the whole
+        pipeline (reference process.py:237-240)."""
+        if self.cfg.op == "extract_frames":
+            VideoStage(self.cfg.path, self.cfg.video_file).extract_frames()
+            return None
+        return self.pipeline()
 
     def fine_tune(self, store: VideoStore, depth: np.ndarray):
         """Constraints, cold solve and test-time training on `store`, from

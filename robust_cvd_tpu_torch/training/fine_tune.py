@@ -25,8 +25,14 @@ Not ported yet, raising NotImplementedError: RAdam and the bf16 first
 moment (optimizer slice), recon=colmap and its per-step median rescale
 (importers slice), validation and per-pair eval artifacts
 (val_epoch_freq >= 0), the post filter (processor slice) and the
-data-parallel mesh fine-tune (multi-GPU slice). Tensorboard logging is not
-ported: no writer is built.
+data-parallel mesh fine-tune (multi-GPU slice).
+
+Tensorboard: with ft.save_tensorboard, the tuner logs the JAX package's
+scalars, histograms and images through torch.utils.tensorboard under
+<experiment dir>/tensorboard (or ft.tensorboard_log_path / ft.log_dir);
+where the tensorboard package is missing it prints one line and logs
+nothing. The per-step values are read back once per epoch, after the
+epoch's host sync.
 """
 
 from __future__ import annotations
@@ -263,7 +269,7 @@ class FineTuner:
         if ft.val_epoch_freq >= 0:
             raise NotImplementedError(
                 "validation and per-pair eval artifacts (val_epoch_freq >= 0) "
-                "are not ported yet (orchestration and CLI slice)"
+                "are not ported yet (importers and validation slice)"
             )
         if cfg.post_filter:
             raise NotImplementedError(
@@ -296,8 +302,19 @@ class FineTuner:
             "pose_opt_s": 0.0, "train_steps_s": 0.0, "refresh_s": 0.0,
             "persist_io_s": 0.0,
         }
-        if ft.save_tensorboard:
-            print("fine-tune: tensorboard logging is not ported; no writer is built")
+        self.writer = None
+        # reference default: <experiment dir>/tensorboard
+        # (depth_fine_tuning.py:386-395)
+        tb_dir = ft.tensorboard_log_path or ft.log_dir
+        if not tb_dir and out_dir is not None:
+            tb_dir = pjoin(out_dir, "tensorboard")
+        if ft.save_tensorboard and tb_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as e:
+                print(f"fine-tune: no tensorboard logging ({e})")
+            else:
+                self.writer = SummaryWriter(tb_dir)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -352,6 +369,7 @@ class FineTuner:
             with persist_io():
                 self.pose.save_depth_to_last_stream(self.current_depth.cpu().numpy())
 
+        total_iters = 0
         self.optimize_poses()
         if persist:
             # depth_e0000 with intermediate streams on, else the fine_tuned
@@ -368,12 +386,13 @@ class FineTuner:
         for epoch in range(num_epochs):
             t0 = time.perf_counter()
             order = torch.as_tensor(self.rng.permutation(n_pairs), device=self.device)
-            losses_d, oks = [], []
+            losses_d, parts_d, oks = [], [], []
             # P // B full batches, then the remainder as one step (reference
             # DataLoader drop_last=False), as the JAX package groups them
             for s in range(0, n_pairs, batch):
-                loss, _, ok = self.train_step(order[s : s + batch])
+                loss, parts, ok = self.train_step(order[s : s + batch])
                 losses_d.append(loss)
+                parts_d.append(parts)
                 oks.append(ok)
             # the loop's one host sync: mean loss and skipped-step count
             mean_loss, skipped = torch.stack(
@@ -388,6 +407,9 @@ class FineTuner:
             })
             print(f"fine-tune epoch {epoch}: loss {mean_loss:.6f}, {len(oks)} steps, "
                   f"{int(skipped)} skipped, 1 host sync in the train loop, {dt:.3f} s")
+            if self.writer is not None:
+                self._log_epoch(total_iters, batch, n_pairs, losses_d, parts_d)
+            total_iters += n_pairs
 
             if ft.save_checkpoints and (epoch + 1) % max(1, ft.save_epoch_freq) == 0:
                 ckpt_dir = pjoin(self.out_dir, "checkpoints") if self.out_dir else "checkpoints"
@@ -420,16 +442,57 @@ class FineTuner:
         self.refresh_depth()
         if persist:
             save_current_depth()
+        if self.writer is not None:
+            self.writer.flush()
         return self.history
+
+    def _log_epoch(self, iters0: int, batch: int, n_pairs: int, losses, parts):
+        """Tensorboard summaries of one epoch, as the JAX package writes them
+        (on the reference's running pair counter, depth_fine_tuning.py:
+        542-551): per-step loss and part mean/max/min every print_freq
+        pairs; when the epoch passes a multiple of display_freq, histograms
+        of the last step's parts and the epoch's losses, and the image grid."""
+        ft = self.cfg.ft
+        losses = torch.stack(losses).cpu().numpy()
+        parts = [{k: np.atleast_1d(v.cpu().numpy()) for k, v in p.items()} for p in parts]
+        it, display_at = iters0, None
+        for s, (lval, prow) in enumerate(zip(losses, parts)):
+            it += min(batch, n_pairs - s * batch)
+            if it % max(1, ft.print_freq) == 0:
+                self.writer.add_scalar("Train/loss", float(lval), it)
+                for k, arr in prow.items():
+                    self.writer.add_scalar(f"Train/{k}/mean", float(arr.mean()), it)
+                    self.writer.add_scalar(f"Train/{k}/max", float(arr.max()), it)
+                    self.writer.add_scalar(f"Train/{k}/min", float(arr.min()), it)
+            if it % max(1, ft.display_freq) == 0:
+                display_at = it
+        if display_at is not None:
+            for k, v in parts[-1].items():
+                self.writer.add_histogram(f"Train/{k}", v, display_at)
+            self.writer.add_histogram("Train/batch_losses", losses, display_at)
+            self._log_image_grid(display_at)
+
+    def _log_image_grid(self, step: int):
+        """Image, inverse depth and flow mask of the first training pair
+        (reference depth_fine_tuning.py:120-191 image summaries)."""
+        i = int(self.clip.pair_idx[0, 0])
+        self.writer.add_image("Train/image", self.clip.images[i].cpu().numpy(), step,
+                              dataformats="HWC")
+        if self.current_depth is not None:
+            inv = 1.0 / np.maximum(self.current_depth[i].cpu().numpy(), 1e-7)
+            inv = inv / max(float(inv.max()), 1e-9)
+            self.writer.add_image("Train/inv_depth", inv[None], step, dataformats="CHW")
+        self.writer.add_image("Train/flow_mask", self.clip.masks[0, 0].cpu().numpy()[None],
+                              step, dataformats="CHW")
 
     def validate(self, epoch: int, niters: int):
         raise NotImplementedError(
-            "validation is not ported yet (orchestration and CLI slice)"
+            "validation is not ported yet (importers and validation slice)"
         )
 
     def eval_pair_losses(self):
         raise NotImplementedError(
-            "per-pair eval losses are not ported yet (orchestration and CLI slice)"
+            "per-pair eval losses are not ported yet (importers and validation slice)"
         )
 
     def refresh_depth(self):

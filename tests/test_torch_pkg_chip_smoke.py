@@ -2,19 +2,23 @@
 
 The card-only phases (kernel builds, kernel comparisons and timing, the
 card-vs-CPU checks, the profiles) cannot run here; the pose path, the
-fine-tune path and the flow path can, with the CPU device, small nets, a
-small frame size and one epoch, and they raise on any failed check (finite depth, constraints, parameters and
+fine-tune path, the flow path and the whole pipeline through the CLI can,
+with the CPU device, small nets, a small frame size and one epoch, and they
+raise on any failed check (finite depth, constraints, parameters and
 losses, cold solves lowering their cost and warm ones not raising it, the
 fine-tuned stream and video.dat written, parameters moved). Without CUDA
 the script must exit non-zero and print no result.
 """
 
+import functools
+import json
+import os
 import sys
 
 import torch
 
 import chip_smoke
-from robust_cvd_tpu_torch.models import midas
+from robust_cvd_tpu_torch.models import midas, raft
 
 
 def test_path_phase_on_cpu(monkeypatch, capsys, tmp_path):
@@ -52,6 +56,34 @@ def test_flow_phase_on_cpu(monkeypatch, capsys, tmp_path):
         assert line in out
     chip_smoke.exact_mask_check(str(tmp_path / "exact"), 8, 0, device="cpu")
     assert "30 of 30 masks equal" in capsys.readouterr().out
+
+
+def test_pipeline_phase_on_cpu(monkeypatch, capsys, tmp_path):
+    """The pipeline phase at a cut size: 8 frames at the card's 224x384, the
+    CLI's nets narrowed to the small MiDaS net and RAFT float32 with 2
+    iterations (its flow head zeroed by the phase), the small solver
+    schedule, one epoch, on the CPU; its checks (the result tree, flows and
+    mask ratios against the true shift, static dynamic masks, steps and
+    solves) raise on failure. The frame keeps the card's size because a
+    mask ratio may miss its in-bounds share by the top and bottom rows and
+    a border column (flows a few 1e-5 px off the integer shift), 2/H + 1/W:
+    0.0115 at 224x384, 0.0208 at 128x192, against the phase's 0.02."""
+    monkeypatch.setattr(midas, "MidasNet", functools.partial(
+        midas.MidasNet, features=32, backbone_layers=(1, 1, 1, 1)))
+    monkeypatch.setattr(raft, "RAFT", functools.partial(raft.RAFT, iters=2, dtype=torch.float32))
+    base = str(tmp_path / "clip")
+    small = ["--opt.num_steps", "2", "--opt.ctf_long", "3", "--opt.ctf_short", "2",
+             "--opt.lm_max_outer", "4", "--opt.lm_cg_iters", "8"]
+    launches, proc = chip_smoke.pipeline_phase(base, 8, 0, 1, device="cpu", argv=small)
+    assert launches == {"corner": 0, "adam": 0}  # the CPU takes the plain versions
+    out = capsys.readouterr().out
+    for line in ("pipeline stage fine_tune ", "pipeline_s_per_frame ",
+                 "pipeline flows vs truth: 30 pairs", "1 warm at or below"):
+        assert line in out
+    names = [s["name"] for s in json.load(open(os.path.join(
+        base, "R0-7_hierarchical2_midas2", "stage_timings.json")))["spans"]]
+    assert set(chip_smoke.PIPELINE_SPANS) <= set(names)
+    assert proc.device.type == "cpu" and len(proc.tuner.history) == 1
 
 
 def test_small_tuner_steps_on_cpu():

@@ -191,8 +191,21 @@ def test_unported_fine_tune_paths_raise(runs):
     with pytest.raises(NotImplementedError):
         FineTuner(cfg, tuner.adapter, tuner.clip, tuner.pose_inputs, mesh=object(),
                   device="cpu")
-    with pytest.raises(NotImplementedError):
-        runs["tproc"].pipeline()
+    # pipeline() now runs: on a copy of the clip given colour frames, every
+    # stage before fine-tuning reuses the clip's outputs (no RAFT needed)
+    base = runs["tdir"] + "_pipeline"
+    shutil.copytree(runs["tdir"], base)
+    from robust_cvd_tpu_torch.io.store import frame_name, save_png_color
+
+    os.makedirs(os.path.join(base, "color_full"))
+    for i, frame in enumerate(runs["tstore"].load_color_down()):
+        save_png_color(os.path.join(base, "color_full", frame_name(i, ".png")), frame)
+    one = dataclasses.replace(cfg, path=base, ft=dataclasses.replace(cfg.ft, num_epochs=1))
+    proc = TProcessor(one, models={"depth": tuner.adapter, "flow": None}, device="cpu")
+    store = proc.pipeline()
+    assert store.num_frames == N and len(proc.tuner.history) == 1
+    assert os.path.exists(os.path.join(proc.out_dir(N), "stage_timings.json"))
+    assert "fine_tune" in proc.tracer.summary()
     colmap = TProcessor(dataclasses.replace(cfg, recon="colmap"),
                         models=runs["tproc"].models, device="cpu")
     with pytest.raises(NotImplementedError):

@@ -209,8 +209,15 @@ def test_stale_resolution_flow_recomputed(stages, tmp_path):
     with pytest.raises(RuntimeError, match="RAFT model required"):
         stage.compute_flow([(0, 1), (1, 0)])
     stage.compute_flow([(0, 1)])
-    with pytest.raises(NotImplementedError):
-        stage.visualize_flow([(0, 1)])
+    # visualize_flow now draws the pair: colours and flow wheels, originals
+    # over the masked ones, and both warp checks
+    shutil.copytree(pjoin(tbase, "flow_mask"), pjoin(base, "flow_mask"))
+    store.save_flow(1, 0, np.zeros((24, 32, 2), np.float32))
+    stage.visualize_flow([(0, 1), (1, 0)])
+    vis = tstore.load_png_color(pjoin(base, "vis_flow", "frame_000000_000001.png"))
+    assert vis.shape == (48, 128, 3)
+    assert sorted(os.listdir(pjoin(base, "vis_flow_warped"))) == [
+        "frame_000000_000001_warped.png", "frame_000001_000000_warped.png"]
 
 
 def test_png_color_io_matches_jax(tmp_path):

@@ -49,7 +49,7 @@ def test_import_loads_no_jax():
         env=env, timeout=300,
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    assert len(_port_modules()) >= 41
+    assert len(_port_modules()) >= 46
 
 
 def _imported_names(path):
@@ -65,7 +65,7 @@ def _imported_names(path):
 def test_sources_import_no_jax_or_jax_package():
     files = [os.path.join(REPO, p) for p in (
         "chip_smoke.py", "tools/sweep_corner_cuda.py", "tools/time_kernels_cuda.py",
-        "tools/flow_path_cuda.py")]
+        "tools/flow_path_cuda.py", "tools/pipeline_cuda.py")]
     for root, _, names in os.walk(PKG_DIR):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = []
@@ -177,6 +177,16 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch, tmp_path):
         PoseOptimizer(PipelineConfig(), store, "depth_midas2")
     with pytest.raises(RuntimeError, match="CUDA"):
         DatasetProcessor(PipelineConfig())
+    from robust_cvd_tpu_torch.main import main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--path", str(tmp_path / "clip")])
+    # asked for the CPU, the CLI and pipeline() get past the device and stop
+    # at the empty clip
+    with pytest.raises(FileNotFoundError, match="color_full"):
+        main(["--path", str(tmp_path / "clip")], device="cpu")
+    with pytest.raises(FileNotFoundError, match="color_full"):
+        DatasetProcessor(PipelineConfig(path=str(tmp_path / "clip2")), device="cpu").pipeline()
     from robust_cvd_tpu_torch.pipeline.flow import FlowStage
 
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -149,11 +149,17 @@ def test_unported_paths_raise(runs, tmp_path):
     assert [s.name for s in vd.depth_streams] == ["depth_midas2"]
     with pytest.raises(NotImplementedError):
         tpose.filter_depth(4)
+    # dynamic_constraints="Ransac" now runs: the flags of a rigid pan are
+    # those of the JAX package (tests/test_torch_pkg_masks.py) and mostly
+    # static
     cfg = dataclasses.replace(
         runs["tcfg"], opt=tconfig.PoseOptParams(dynamic_constraints="Ransac")
     )
-    with pytest.raises(NotImplementedError):
-        TPose(cfg, runs["tstore"], "depth_midas2", device="cpu")
+    ransac = TPose(cfg, runs["tstore"], "depth_midas2", device="cpu")
+    for k in ransac.pair_keys:
+        flags = ransac.pairs[k].is_static
+        assert flags.dtype == bool and len(flags) == len(ransac.pairs[k].loc0)
+    assert np.mean(np.concatenate([ransac.pairs[k].is_static for k in ransac.pair_keys])) > 0.9
     gt = str(tmp_path / "clip")
     shutil.copytree(runs["tdir"], gt)
     os.makedirs(os.path.join(gt, "depth_gt"))
