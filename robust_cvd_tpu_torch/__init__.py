@@ -7,6 +7,8 @@ passes device="cpu". The whole pipeline runs through its CLI,
 the JAX package's main.py), or `pipeline/process.py::DatasetProcessor`:
 frames, MiDaS initial depth, RAFT flow with homography registration and
 consistency masks, motion-segmentation dynamic masks, flow constraints,
-the pose solve and test-time fine-tuning, with per-stage timings. What is
-not ported yet is listed in ROADMAP.md.
+the pose solve and test-time fine-tuning, with per-stage timings;
+validation, GT-depth and COLMAP imports and recon=colmap too. The
+golden-scene quality gates are in quality.py. What is not ported yet is
+listed in ROADMAP.md.
 """

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -37,6 +38,22 @@ class CameraState(NamedTuple):
     vfov: torch.Tensor
     hfov: torch.Tensor
 
+    @staticmethod
+    def default(num_frames: int, aspect: float,
+                focal_long: float = 0.3461538376301239, device=None) -> "CameraState":
+        """Cameras at the origin with the identity orientation and the
+        iPhone-7 focal; `focal_long` is tan(fov / 2) on the long image side
+        (reference lib/PoseOptimizer.h:92-94)."""
+        v_focal = focal_long / aspect if aspect >= 1.0 else focal_long
+        vfov = 2.0 * np.arctan(v_focal)
+        hfov = 2.0 * np.arctan(v_focal * aspect)
+        return CameraState(
+            position=torch.zeros((num_frames, 3), device=device),
+            quaternion=torch.tensor([0.0, 0.0, 0.0, 1.0], device=device).repeat(num_frames, 1),
+            vfov=torch.full((num_frames,), float(vfov), device=device),
+            hfov=torch.full((num_frames,), float(hfov), device=device),
+        )
+
 
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     """[x, y, z, w] quaternions (..., 4) -> rotation matrices (..., 3, 3)."""
@@ -52,6 +69,29 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
         torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], -1),
     ]
     return torch.stack(rows, -2)
+
+
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> [x, y, z, w] quaternions (..., 4),
+    w >= 0. Shepperd's method without branches: four candidates, the one
+    seeded by the largest diagonal combination is kept."""
+    m00, m11, m22 = m[..., 0, 0], m[..., 1, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    one = torch.ones_like(tr)
+    cands = torch.stack([
+        torch.stack([m[..., 2, 1] - m[..., 1, 2], m[..., 0, 2] - m[..., 2, 0],
+                     m[..., 1, 0] - m[..., 0, 1], one + tr], -1),
+        torch.stack([one + m00 - m11 - m22, m[..., 0, 1] + m[..., 1, 0],
+                     m[..., 0, 2] + m[..., 2, 0], m[..., 2, 1] - m[..., 1, 2]], -1),
+        torch.stack([m[..., 0, 1] + m[..., 1, 0], one - m00 + m11 - m22,
+                     m[..., 1, 2] + m[..., 2, 1], m[..., 0, 2] - m[..., 2, 0]], -1),
+        torch.stack([m[..., 0, 2] + m[..., 2, 0], m[..., 1, 2] + m[..., 2, 1],
+                     one - m00 - m11 + m22, m[..., 1, 0] - m[..., 0, 1]], -1),
+    ], -2)  # (..., 4 candidates, 4)
+    idx = torch.stack([tr, m00, m11, m22], -1).argmax(-1)
+    q = torch.gather(cands, -2, idx[..., None, None].expand(*idx.shape, 1, 4))[..., 0, :]
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return torch.where(q[..., 3:4] < 0, -q, q)
 
 
 def axis_angle_to_matrix(aa: torch.Tensor) -> torch.Tensor:
@@ -93,6 +133,11 @@ def quat_to_axis_angle(q: torch.Tensor) -> torch.Tensor:
     return v * scale[..., None]
 
 
+def matrix_to_axis_angle(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> angle-axis (..., 3), angle in [0, pi]."""
+    return quat_to_axis_angle(matrix_to_quat(m))
+
+
 def axis_angle_to_quat(aa: torch.Tensor) -> torch.Tensor:
     """Angle-axis (..., 3) -> [x, y, z, w] quaternions (..., 4)."""
     theta2 = (aa * aa).sum(-1)
@@ -102,6 +147,32 @@ def axis_angle_to_quat(aa: torch.Tensor) -> torch.Tensor:
         theta2 < 1e-16, torch.full_like(theta, 0.5), torch.sin(half) / theta
     )
     return torch.cat([aa * sinc_half[..., None], torch.cos(half)[..., None]], -1)
+
+
+def rotate_point_axis_angle(aa: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Rotate points p (..., 3) by angle-axis vectors aa (broadcastable to
+    p) with the Rodrigues formula (ceres::AngleAxisRotatePoint), first
+    order p + aa x p near zero."""
+    aa = aa.expand_as(p)
+    theta2 = (aa * aa).sum(-1, keepdim=True)
+    theta = torch.sqrt(theta2 + 1e-24)
+    axis = aa / theta
+    c, s = torch.cos(theta), torch.sin(theta)
+    d = (axis * p).sum(-1, keepdim=True)
+    rotated = c * p + s * torch.linalg.cross(axis, p) + (1.0 - c) * d * axis
+    small = p + torch.linalg.cross(aa, p)
+    return torch.where(theta2 < 1e-16, small, rotated)
+
+
+def world_to_camera_matrix(position: torch.Tensor, quaternion: torch.Tensor) -> torch.Tensor:
+    """4x4 world->camera ("modelview") matrices (..., 4, 4) from positions
+    (..., 3) and quaternions (..., 4) (reference lib/DepthPhoto.cpp:63-80)."""
+    rt = quat_to_matrix(quaternion).transpose(-1, -2)
+    t = -(rt * position[..., None, :]).sum(-1)
+    top = torch.cat([rt, t[..., None]], -1)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], -2)
 
 
 def pose_params_to_camera(

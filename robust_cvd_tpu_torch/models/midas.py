@@ -18,11 +18,15 @@ with the batch's biased statistics and leaves the running statistics alone
 until `commit_batch_stats` applies Flax's update, running = 0.9 running +
 0.1 batch, with the BIASED batch variance (torch's own BatchNorm2d would
 fold in the unbiased one) and only where the step's guard flag is set.
+Within `per_slice_batch_stats(net, g)` a train-mode batch of g equal
+slices normalises each slice with its own statistics (the per-pair eval,
+which the JAX package runs one pair at a time).
 """
 
 from __future__ import annotations
 
 import re
+from contextlib import contextmanager
 from typing import Dict, Sequence
 
 import numpy as np
@@ -53,6 +57,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     by (n - 1) / n), so train mode adds no pass over the activations."""
 
     batch_stats = None
+    # > 1: train mode normalises each of this many equal slices of the batch
+    # with its own statistics and records none (see per_slice_batch_stats)
+    stat_slices = 1
 
     def forward(self, x):
         if not self.training:
@@ -60,6 +67,16 @@ class BatchNorm2d(nn.BatchNorm2d):
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 False, 0.0, self.eps,
             )
+        if self.stat_slices > 1:
+            # (G*K, C, H, W) -> (K, G*C, H, W): slice g's channels become
+            # channels of their own, so one fused call gives each slice its
+            # own statistics
+            g = self.stat_slices
+            n, c, h, w = x.shape
+            xs = x.reshape(g, n // g, c, h, w).transpose(0, 1).reshape(n // g, g * c, h, w)
+            y = F.batch_norm(xs, None, None, self.weight.repeat(g), self.bias.repeat(g),
+                             True, 0.0, self.eps)
+            return y.reshape(n // g, g, c, h, w).transpose(0, 1).reshape(n, c, h, w)
         mean = x.new_zeros(self.num_features)
         var = x.new_zeros(self.num_features)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
@@ -70,6 +87,22 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 def batch_norms(net: nn.Module) -> list:
     return [m for m in net.modules() if isinstance(m, BatchNorm2d)]
+
+
+@contextmanager
+def per_slice_batch_stats(net: nn.Module, slices: int):
+    """Within the block, a train-mode forward of a batch of `slices` equal
+    slices normalises each slice with its own batch statistics, as if each
+    went through the net alone, and records no statistics to commit."""
+    layers = batch_norms(net)
+    for m in layers:
+        m.stat_slices = slices
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.stat_slices = 1
+            m.batch_stats = None
 
 
 def commit_batch_stats(net: nn.Module, ok: torch.Tensor) -> None:

@@ -52,6 +52,10 @@ def _load() -> ctypes.CDLL:
         i32p, f32p, f32p, ctypes.c_int64,
     ]
     lib.build_triplet_candidates.restype = ctypes.c_int64
+    lib.stamp_disks.argtypes = [
+        i32p, i32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, u8p,
+    ]
+    lib.stamp_disks.restype = None
     _lib = lib
     return lib
 
@@ -119,3 +123,18 @@ def build_triplet_candidates(corner, flow10, mask10, flow12, mask12, radius: int
         _ptr(out_f2, ctypes.c_float), cap,
     )
     return out_xy[:n], out_f0[:n], out_f2[:n]
+
+
+def stamp_disks(xs: np.ndarray, ys: np.ndarray, w: int, h: int, radius: int) -> np.ndarray:
+    """Union of the disks of `radius` centred at the pixels (xs, ys) ->
+    bool (h, w) (reference lib/FlowConstraints.cpp:662-709)."""
+    xs = np.ascontiguousarray(xs, np.int32)
+    ys = np.ascontiguousarray(ys, np.int32)
+    if xs.shape != ys.shape or xs.ndim != 1:
+        raise ValueError(f"xs {xs.shape} and ys {ys.shape} must be one equal-length vector")
+    out = np.zeros((h, w), np.uint8)
+    _load().stamp_disks(
+        _ptr(xs, ctypes.c_int32), _ptr(ys, ctypes.c_int32), xs.shape[0], w, h, radius,
+        _ptr(out, ctypes.c_uint8),
+    )
+    return out.astype(bool)

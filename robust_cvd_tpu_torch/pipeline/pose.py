@@ -7,14 +7,19 @@ folder (through the corner kernel on the card), caches them in
 
 Static flags come from the dynamic masks (dynamic_constraints="Mask") or
 from a RANSAC fundamental matrix per pair ("Ransac", ops/epipolar.py).
+A `depth_gt/` directory (with an optional `poses.txt`) and a COLMAP
+reconstruction (`colmap_dense/metadata.npz` with `depth_colmap_dense/`)
+are imported as extra depth streams ahead of the estimated one
+(io/importers.py); their cameras seed `optimize_poses`.
 
 Not ported yet, and raising NotImplementedError rather than doing nothing:
-the GT-depth / COLMAP importers (importers slice) and `filter_depth` (the
-slice that ports the remaining processors; ROADMAP.md).
+`filter_depth` (the slice that ports the remaining processors;
+ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from os.path import join as pjoin
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -55,26 +60,60 @@ class PoseOptimizer:
         self.device = resolve_device(device)
         self.solver_params: Optional[SolverParams] = None
         self.solve_log: list = []
-        self._check_external_streams()
-        # stream 0 lives at <base>/<name>/depth; the newest stream is the one
-        # the fine-tuner writes
-        self.streams: List[DepthStreamRef] = [
-            DepthStreamRef(depth_stream, pjoin(store.base_dir, depth_stream))
-        ]
+        self.initial_camera = None  # imported GT / COLMAP cameras, if any
+        self.enabled_frames = None
+        # imported streams first; the estimated stream <base>/<name>/depth
+        # after them; the newest stream is the one the fine-tuner writes
+        self.streams: List[DepthStreamRef] = []
+        self._import_external_streams()
+        self.streams.append(DepthStreamRef(depth_stream, pjoin(store.base_dir, depth_stream)))
         self._build_constraints()
 
-    def _check_external_streams(self):
-        """GT depth/poses and COLMAP reconstructions are imported as extra
-        streams by the JAX package (reference pose_optimization.py:119-159);
-        the port has no importers yet."""
+    def _import_external_streams(self):
+        """Register GT depth/pose and COLMAP reconstruction streams ahead of
+        the estimated stream (reference pose_optimization.py:119-159: the
+        LAST stream is the optimized one). GT poses.txt or the COLMAP
+        cameras become `initial_camera` (COLMAP's win where both exist) and
+        seed the estimated stream (copy_poses, :152-158)."""
+        from ..io import importers
+
         base = self.store.base_dir
-        if os.path.isdir(pjoin(base, "depth_gt")) or os.path.exists(
-            pjoin(base, "colmap_dense", "metadata.npz")
-        ):
-            raise NotImplementedError(
-                "importing GT depth / COLMAP streams is not ported yet "
-                "(importers slice)"
+        n = self.store.num_frames
+
+        gt_dir = pjoin(base, "depth_gt")
+        if os.path.isdir(gt_dir):
+            self.streams.append(DepthStreamRef("depth_gt", gt_dir))
+            poses_file = pjoin(gt_dir, "poses.txt")
+            if os.path.exists(poses_file):
+                self.initial_camera, self.enabled_frames = importers.import_poses(
+                    poses_file, n
+                )
+
+        colmap_meta = pjoin(base, "colmap_dense", "metadata.npz")
+        colmap_depth = pjoin(base, "depth_colmap_dense")
+        if os.path.exists(colmap_meta) and os.path.isdir(colmap_depth):
+            imported = pjoin(base, "depth_colmap_dense_imported")
+            if not os.path.isdir(pjoin(imported, "depth")):
+                src = pjoin(colmap_depth, "depth")
+                importers.import_colmap_depth(
+                    src if os.path.isdir(src) else colmap_depth,
+                    pjoin(imported, "depth"), base,
+                )
+            self.streams.append(DepthStreamRef("colmap_dense", imported))
+            self.initial_camera, self.enabled_frames = importers.import_colmap_recon(
+                base, colmap_meta, pjoin(imported, "depth"), n
             )
+
+    def _load_stream_depth(self, ref: DepthStreamRef) -> np.ndarray:
+        """(N, h, w) depth of a registered stream's disparity .raw files."""
+        from ..io import raw
+
+        return np.stack([
+            raw.disparity_to_depth(
+                raw.load_raw_float32_image(pjoin(ref.dir, "depth", f"frame_{i:06d}.raw"))
+            )
+            for i in range(self.store.num_frames)
+        ])
 
     # -- depth-stream registry (reference pose_optimization.py:242-326) -----
 
@@ -337,6 +376,24 @@ class PoseOptimizer:
             {t: tc.loc for t, tc in triplets.items()},
         )
 
+    # -- static-flag maintenance (reference lib/FlowConstraints.h:187-189) ---
+
+    def reset_static_flag(self):
+        """Mark every constraint static (reference FlowConstraints.cpp:552-571)."""
+        for pc in self.pairs.values():
+            pc.is_static[:] = True
+        for tc in self.triplets.values():
+            tc.is_static[:] = True
+
+    def prune_static_flag(self, prune_distance: int = 10):
+        """Contaminate the neighbourhoods of dynamic constraints at
+        color_down's resolution (reference FlowConstraints.cpp:662-748)."""
+        h, w = self.store.load_color_down().shape[1:3]
+        C.prune_static_flag(
+            self.store.num_frames, self.pair_keys, self.pairs,
+            self.triplet_keys, self.triplets, (h, w), prune_distance,
+        )
+
     # -- optimization (reference pose_optimization.py:177-240) ---------------
 
     def _make_inputs(self) -> PoseOptInputs:
@@ -367,10 +424,20 @@ class PoseOptimizer:
     def optimize_poses(self) -> SolverParams:
         """One solve: cold (normalize + the full coarse-to-fine schedule) the
         first time, warm afterwards when opt.warm_start. Each LM solve is
-        appended to `solve_log`."""
+        appended to `solve_log`. Before the first solve, imported cameras
+        seed the poses and focals of a full cold solve (reference
+        pose_optimization.py:152-158)."""
         inputs = self._make_inputs()
-        self.solver_params = pose_opt.run(
-            self.cfg.opt, inputs, initial=self.solver_params, log=self.solve_log
-        )
+        initial, opt = self.solver_params, self.cfg.opt
+        if initial is None and self.initial_camera is not None:
+            from ..camera import CameraState, camera_to_pose_params
+
+            cam = CameraState(*[t.to(self.device) for t in self.initial_camera])
+            pose, focal = camera_to_pose_params(cam)
+            initial = pose_opt.default_solver_params(
+                self.store.num_frames, focal, opt.value_xform
+            )._replace(pose=pose)
+            opt = dataclasses.replace(opt, warm_start=False)
+        self.solver_params = pose_opt.run(opt, inputs, initial=initial, log=self.solve_log)
         self.last_inputs = inputs
         return self.solver_params

@@ -8,9 +8,11 @@ for its outputs and skips (the reference's resumability contract,
 process.py:150-152). The models come from their checkpoints under
 `<path>/models/` and every stage runs on the processor's device.
 
+With recon=colmap the fine-tune takes its poses fixed from a COLMAP
+reconstruction (`_colmap_fixed_poses`) and runs no pose solve.
+
 Not ported: Mask R-CNN dynamic masks (--mask_rcnn_weights raises
-NotImplementedError before the mask stage) and recon=colmap (the importers
-slice).
+NotImplementedError before the mask stage).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import traceback
 from os.path import join as pjoin
 
 import numpy as np
+import torch
 
 from ..config import PipelineConfig, echo_non_default
 from ..device import resolve_device
@@ -198,10 +201,6 @@ class DatasetProcessor:
 
         t_setup = time.perf_counter()
         cfg = self.cfg
-        if cfg.recon == "colmap":
-            raise NotImplementedError(
-                "recon=colmap fixed poses are not ported yet (importers slice)"
-            )
         pose = PoseOptimizer(cfg, store, f"depth_{cfg.model_type}", device=self.device)
         flow_list = store.load_flow_list()
         for (i, j, _r) in flow_list:
@@ -212,10 +211,14 @@ class DatasetProcessor:
             or cfg.loss.lambda_smooth_reprojection > 0
             or cfg.loss.lambda_smooth_depth_ratio > 0
         )
+        images = store.load_color_down()
+        pose_state_override, ref_disp = None, None
+        if cfg.recon == "colmap":
+            pose_state_override, ref_disp = self._colmap_fixed_poses(store, images.shape[1:3])
         clip = build_clip_data(
-            store.load_color_down(), depth, flow_list, store.flows,
+            images, depth, flow_list, store.flows,
             {k: np.asarray(v, np.float32) for k, v in store.flow_masks.items()},
-            cfg.min_mask_ratio, use_temporal, device=self.device,
+            cfg.min_mask_ratio, use_temporal, ref_disp=ref_disp, device=self.device,
         )
         inputs = pose._make_inputs()
         adapter = self._depth_model()
@@ -225,8 +228,58 @@ class DatasetProcessor:
         ft_dir = pjoin(self.out_dir(store.num_frames), make_tag(cfg))
         os.makedirs(ft_dir, exist_ok=True)
         tuner = FineTuner(
-            cfg, adapter, clip, inputs, pose=pose, out_dir=ft_dir, device=self.device,
+            cfg, adapter, clip, inputs, pose=pose, out_dir=ft_dir,
+            pose_state_override=pose_state_override, device=self.device,
         )
         tuner.stats["setup_s"] = time.perf_counter() - t_setup
         tuner.run()
         return tuner
+
+    def _colmap_fixed_poses(self, store: VideoStore, shape):
+        """recon=colmap inputs (reference depth_fine_tuning.py:296-318,
+        494-511): the fixed extrinsics and pixel intrinsics of the COLMAP
+        metadata npz as a PoseState on the device (unit scale maps, no
+        warp), and with scaling=depth the reference disparity of
+        <path>/depth_colmap_dense/depth/*.raw, nearest-resized to the
+        training resolution `shape` (the reference hardcodes 224 x 384).
+
+        scaling=extrinsics reads metadata_scaled.npz from the range dir
+        (poses pre-scaled by the COLMAP calibration chain, io/colmap.py);
+        scaling=depth reads <path>/colmap_dense/metadata.npz."""
+        from ..io import raw as raw_io
+        from ..training.fine_tune import PoseState
+
+        cfg = self.cfg
+        if cfg.scaling == "extrinsics":
+            meta_file = pjoin(self.out_dir(store.num_frames), "metadata_scaled.npz")
+        else:
+            meta_file = pjoin(cfg.path, "colmap_dense", "metadata.npz")
+        if not os.path.exists(meta_file):
+            raise FileNotFoundError(
+                f"--recon colmap needs {meta_file} (run the COLMAP import "
+                "chain, io/colmap.py / io/importers.py, first)"
+            )
+        with np.load(meta_file) as meta:
+            ext = np.asarray(meta["extrinsics"], np.float32)  # (N, 3, 4)
+            intr = np.asarray(meta["intrinsics"], np.float32)  # (N, 4) px
+        n = store.num_frames
+        if ext.shape[0] != n:
+            raise ValueError(f"metadata npz has {ext.shape[0]} frames, clip has {n}")
+        h, w = shape
+        ps = PoseState(
+            extrinsics=torch.from_numpy(ext).to(self.device),
+            intrinsics=torch.from_numpy(intr).to(self.device),
+            scales=torch.ones((n, h, w), device=self.device),
+            warp=torch.zeros((n, h, w, 2), device=self.device),
+        )
+        ref_disp = None
+        if cfg.scaling == "depth":
+            ref_disp = np.empty((n, h, w), np.float32)
+            for i in range(n):
+                d = raw_io.load_raw_float32_image(
+                    pjoin(cfg.path, "depth_colmap_dense", "depth", f"frame_{i:06d}.raw")
+                )
+                ys = (np.arange(h) * d.shape[0] // h).clip(0, d.shape[0] - 1)
+                xs = (np.arange(w) * d.shape[1] // w).clip(0, d.shape[1] - 1)
+                ref_disp[i] = d[ys[:, None], xs[None, :]]
+        return ps, ref_disp

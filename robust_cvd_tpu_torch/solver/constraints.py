@@ -16,7 +16,8 @@ Data flow per pair (i, j) (reference .cpp:401-465):
 
 Triplets (i-1, i, i+1) chain backward + forward flow from the center frame
 (reference .cpp:467-550). The static flag is recomputed from dynamic-mask
-distance transforms (reference .cpp:573-660).
+distance transforms (reference .cpp:573-660) and pruned around dynamic
+constraints (reference .cpp:662-748).
 """
 
 from __future__ import annotations
@@ -145,6 +146,49 @@ def set_static_flags(
             & lookup(masks[t], tc.loc[:, 1])
             & lookup(masks[t + 1], tc.loc[:, 2])
         )
+
+
+def prune_static_flag(
+    num_frames: int,
+    pair_keys: List[Tuple[int, int]],
+    pairs: Dict[Tuple[int, int], PairConstraints],
+    triplet_keys: List[int],
+    triplets: Dict[int, TripletConstraints],
+    shape: Tuple[int, int],
+    distance: int,
+) -> None:
+    """Contaminate the neighbourhoods of dynamic constraints, in place
+    (reference lib/FlowConstraints.cpp:662-748): every end of a non-static
+    pair constraint stamps a disk of `distance` px into its frame's mask,
+    and every constraint with an end inside a stamped disk turns
+    non-static."""
+    h, w = shape
+    frame_masks = np.zeros((num_frames, h, w), bool)
+
+    def pixels(loc):
+        # y is stored pre-multiplied by inv_aspect: both coordinates * w
+        x = np.clip((loc[:, 0] * w).astype(np.int32), 0, w - 1)
+        y = np.clip((loc[:, 1] * w).astype(np.int32), 0, h - 1)
+        return x, y
+
+    for (i, j), pc in pairs.items():
+        dyn = ~pc.is_static
+        if not dyn.any():
+            continue
+        for frame, loc in ((i, pc.loc0[dyn]), (j, pc.loc1[dyn])):
+            frame_masks[frame] |= native.stamp_disks(*pixels(loc), w, h, distance)
+
+    def hit(frame, loc):
+        x, y = pixels(loc)
+        return frame_masks[frame][y, x]
+
+    for (i, j) in pair_keys:
+        pc = pairs[(i, j)]
+        pc.is_static[hit(i, pc.loc0) | hit(j, pc.loc1)] = False
+    for t in triplet_keys:
+        tc = triplets[t]
+        bad = hit(t - 1, tc.loc[:, 0]) | hit(t, tc.loc[:, 1]) | hit(t + 1, tc.loc[:, 2])
+        tc.is_static[bad] = False
 
 
 # ---------------------------------------------------------------------------

@@ -21,10 +21,20 @@ Precision on the card: float32 parameters, activations and Adam state;
 cuDNN convolutions in TF32 unless the tuner is built with
 cudnn_tf32=False; the loss stack and geometry in full float32.
 
+recon=colmap: the poses come fixed from the COLMAP reconstruction
+(`pose_state_override`) and the solver never runs; with a reference
+disparity (`ClipData.ref_disp`) every train and eval step rescales each
+frame's depth by the median ratio of its disparity to the reference's.
+
+Validation (val_epoch_freq >= 0): per-pair losses at epoch 0, every
+val_epoch_freq epochs and after the last, computed on the device over all
+pairs in batches of batch_size (each pair with its own train-mode
+BatchNorm statistics, as the JAX package's one-pair scan) and read back
+once; `eval/loss_e%04d_iter%06d.json` in the reference's layout, the eval
+depth images, the depth-transform scale maps and the scene-flow images.
+
 Not ported yet, raising NotImplementedError: RAdam and the bf16 first
-moment (optimizer slice), recon=colmap and its per-step median rescale
-(importers slice), validation and per-pair eval artifacts
-(val_epoch_freq >= 0), the post filter (processor slice) and the
+moment (optimizer slice), the post filter (processor slice) and the
 data-parallel mesh fine-tune (multi-GPU slice).
 
 Tensorboard: with ft.save_tensorboard, the tuner logs the JAX package's
@@ -49,7 +59,9 @@ import torch
 from ..camera import pose_params_to_camera, quat_to_matrix
 from ..config import LossParams, PipelineConfig
 from ..device import float32_precision, resolve_device
-from ..models.midas import commit_batch_stats, depth_apply, normalize_images
+from ..models.midas import (
+    commit_batch_stats, depth_apply, normalize_images, per_slice_batch_stats,
+)
 from ..ops import geometry
 from ..solver import pose_opt, xforms
 from ..solver.pose_opt import PoseOptInputs
@@ -73,6 +85,9 @@ class ClipData(NamedTuple):
     flows_n: Optional[torch.Tensor] = None  # (P, 4, H, W, 2)
     masks_n: Optional[torch.Tensor] = None  # (P, 4, H, W)
     valid_n: Optional[torch.Tensor] = None  # (P, 2)
+    # recon=colmap with scaling=depth: per-frame reference disparity, where
+    # non-finite pixels are invalid (reference depth_fine_tuning.py:494-511)
+    ref_disp: Optional[torch.Tensor] = None  # (N, H, W)
 
 
 class PoseState(NamedTuple):
@@ -126,10 +141,6 @@ def build_clip_data(
     """Device tensors from per-pair host data. Keeps the pairs (i, j) with
     i < j and min(ratio_ij, ratio_ji) > min_mask_ratio, sorted
     (reference loaders/video_dataset.py:124-147)."""
-    if ref_disp is not None:
-        raise NotImplementedError(
-            "recon=colmap reference disparity is not ported yet (importers slice)"
-        )
     device = resolve_device(device)
     ratio = {(i, j): r for (i, j, r) in flow_list}
     pairs = sorted(
@@ -158,6 +169,8 @@ def build_clip_data(
             for (i, j) in pairs
         ])),
     )
+    if ref_disp is not None:
+        data["ref_disp"] = dev(ref_disp)
     if use_temporal:
         nbr = np.zeros((p, 4), np.int64)
         fln = np.zeros((p, 4, h, w, 2), np.float32)
@@ -183,11 +196,52 @@ def build_clip_data(
     return ClipData(**data)
 
 
-def colmap_depth_scale(depth, ref):
-    raise NotImplementedError(
-        "the recon=colmap per-frame median depth rescale is not ported yet "
-        "(importers slice)"
+def colmap_depth_scale(depth: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Per-frame scale (B, K): the median over valid pixels of estimated
+    disparity / reference disparity, detached (reference
+    depth_fine_tuning.py:494-511); 1 where no pixel is valid. depth, ref:
+    (B, K, H, W). Invalid pixels sort to +inf; with m valid ones the median
+    is the mean of ranks (m - 1) // 2 and m // 2 (numpy's median)."""
+    b, k = depth.shape[:2]
+    valid = torch.isfinite(ref)
+    ratio = torch.where(valid, (1.0 / depth) / ref, torch.inf).reshape(b, k, -1)
+    srt = ratio.sort(dim=-1).values
+    m = valid.reshape(b, k, -1).sum(-1)
+    lo = ((m - 1) // 2).clamp_min(0)
+    hi = (m // 2).clamp_min(0)
+    med = (srt.gather(-1, lo[..., None]) + srt.gather(-1, hi[..., None]))[..., 0] / 2.0
+    return torch.where(m > 0, med, torch.ones_like(med)).detach()
+
+
+def _batch(batch_ids: torch.Tensor, clip: ClipData, ps: PoseState, use_temporal: bool):
+    """The frames (B, K), images (B, K, H, W, 3) and LossMeta of the pairs
+    `batch_ids` (B,) of `clip.pair_idx`."""
+    pair = clip.pair_idx[batch_ids]
+    frames = torch.cat([pair, clip.neighbor_idx[batch_ids]], 1) if use_temporal else pair
+    meta = LossMeta(
+        extrinsics=ps.extrinsics[frames],
+        intrinsics=ps.intrinsics[frames],
+        flows=clip.flows[batch_ids],
+        masks=clip.masks[batch_ids],
+        warp=ps.warp[frames],
+        flows_n=clip.flows_n[batch_ids] if use_temporal else None,
+        masks_n=clip.masks_n[batch_ids] if use_temporal else None,
+        valid_n=clip.valid_n[batch_ids] if use_temporal else None,
     )
+    return frames, clip.images[frames], meta
+
+
+def _train_mode_depth(net, images: torch.Tensor, frames: torch.Tensor, clip: ClipData,
+                      ps: PoseState) -> torch.Tensor:
+    """Train-mode MiDaS depth (B, K, H, W) of images (B, K, H, W, 3), times
+    the scale maps, rescaled to the COLMAP reference where it is set."""
+    b, k, h, w, _ = images.shape
+    net.train()
+    x = normalize_images(images.reshape(b * k, h, w, 3)).permute(0, 3, 1, 2).contiguous()
+    depth = (1.0 / (net(x) + 1e-7)).reshape(b, k, h, w) * ps.scales[frames]
+    if clip.ref_disp is not None:
+        depth = depth * colmap_depth_scale(depth, clip.ref_disp[frames])[..., None, None]
+    return depth
 
 
 def train_step(net, optimizer: FlatAdam, loss_opt: LossParams,
@@ -200,25 +254,9 @@ def train_step(net, optimizer: FlatAdam, loss_opt: LossParams,
     running statistics in place, both only when the loss and every gradient
     are finite. Returns device tensors: the loss, the loss parts, and the
     guard flag. Nothing is read back to the host."""
-    pair = clip.pair_idx[batch_ids]
-    frames = torch.cat([pair, clip.neighbor_idx[batch_ids]], 1) if use_temporal else pair
-    images = clip.images[frames]  # (B, K, H, W, 3)
-    b, k, h, w, _ = images.shape
-    meta = LossMeta(
-        extrinsics=ps.extrinsics[frames],
-        intrinsics=ps.intrinsics[frames],
-        flows=clip.flows[batch_ids],
-        masks=clip.masks[batch_ids],
-        warp=ps.warp[frames],
-        flows_n=clip.flows_n[batch_ids] if use_temporal else None,
-        masks_n=clip.masks_n[batch_ids] if use_temporal else None,
-        valid_n=clip.valid_n[batch_ids] if use_temporal else None,
-    )
+    frames, images, meta = _batch(batch_ids, clip, ps, use_temporal)
     optimizer.zero_grad()
-    net.train()
-    x = normalize_images(images.reshape(b * k, h, w, 3)).permute(0, 3, 1, 2).contiguous()
-    disp = net(x)
-    depth = (1.0 / (disp + 1e-7)).reshape(b, k, h, w) * ps.scales[frames]
+    depth = _train_mode_depth(net, images, frames, clip, ps)
     total, parts = losses.joint_loss(
         loss_opt, images, clip.depth_orig[frames], depth, meta,
         params=optimizer.leaf, params_init=optimizer.init,
@@ -231,6 +269,22 @@ def train_step(net, optimizer: FlatAdam, loss_opt: LossParams,
     return loss, {name: v.detach() for name, v in parts.items()}, ok
 
 
+def eval_losses(net, flat: torch.Tensor, init: torch.Tensor, loss_opt: LossParams,
+                batch_ids: torch.Tensor, clip: ClipData, ps: PoseState,
+                use_temporal: bool):
+    """Loss-only eval of the pairs `batch_ids` (B,) (the JAX package's
+    _make_eval_body): each pair goes through the net in train mode with its
+    own BatchNorm statistics, as if alone, and nothing is updated. Returns
+    per-pair totals (B,) and parts {name: (B,)} on the device."""
+    frames, images, meta = _batch(batch_ids, clip, ps, use_temporal)
+    with torch.no_grad(), per_slice_batch_stats(net, len(batch_ids)):
+        depth = _train_mode_depth(net, images, frames, clip, ps)
+        return losses.pair_losses(
+            loss_opt, images, clip.depth_orig[frames], depth, meta,
+            params=flat, params_init=init,
+        )
+
+
 class FineTuner:
     """Epochs of train steps alternating with depth refreshes and pose
     solves (reference DepthFineTuner.fine_tune, depth_fine_tuning.py:311-631).
@@ -238,8 +292,10 @@ class FineTuner:
     With `pose` (the PoseOptimizer) and `out_dir` set, video.dat is written
     after every pose solve, the depth streams under the experiment dir after
     training, intermediate depth_e%04d[_opt] streams at
-    save_intermediate_depth_streams_freq and checkpoints/%04d.pth at
-    save_epoch_freq. `device` is where training runs ("cuda" unless the
+    save_intermediate_depth_streams_freq, checkpoints/%04d.pth at
+    save_epoch_freq and the eval/ artifacts at val_epoch_freq. With
+    recon=colmap, `pose_state_override` holds the fixed COLMAP geometry (on
+    `device`) and no pose solve runs. `device` is where training runs ("cuda" unless the
     caller asks for "cpu"); `clip` and `pose_inputs` must live there."""
 
     def __init__(self, cfg: PipelineConfig, adapter, clip: ClipData,
@@ -252,9 +308,10 @@ class FineTuner:
             raise NotImplementedError(
                 "the data-parallel mesh fine-tune is not ported yet (multi-GPU slice)"
             )
-        if cfg.recon == "colmap" or pose_state_override is not None:
-            raise NotImplementedError(
-                "recon=colmap fixed poses are not ported yet (importers slice)"
+        if cfg.recon == "colmap" and pose_state_override is None:
+            raise ValueError(
+                "recon=colmap requires a pose_state_override built from the "
+                "COLMAP metadata npz (pipeline/process.py builds it)"
             )
         if ft.optimizer.lower() == "radam":
             raise NotImplementedError(
@@ -266,11 +323,6 @@ class FineTuner:
             raise NotImplementedError(
                 "a bf16 Adam first moment is not ported yet (a later optimizer slice)"
             )
-        if ft.val_epoch_freq >= 0:
-            raise NotImplementedError(
-                "validation and per-pair eval artifacts (val_epoch_freq >= 0) "
-                "are not ported yet (importers and validation slice)"
-            )
         if cfg.post_filter:
             raise NotImplementedError(
                 "the post filter is not ported yet (processor slice)"
@@ -278,6 +330,7 @@ class FineTuner:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cudnn_tf32 = cudnn_tf32
+        self.pose_state_override = pose_state_override
         self.adapter = adapter
         self.net = adapter.net.to(self.device)
         self.clip = clip
@@ -370,7 +423,13 @@ class FineTuner:
                 self.pose.save_depth_to_last_stream(self.current_depth.cpu().numpy())
 
         total_iters = 0
-        self.optimize_poses()
+        # recon=colmap: the COLMAP poses stay fixed and the solver never
+        # runs (reference depth_fine_tuning.py:357-368, 581-583)
+        use_solver = self.cfg.recon == "i3d"
+        if use_solver:
+            self.optimize_poses()
+        else:
+            self.pose_state = self.pose_state_override
         if persist:
             # depth_e0000 with intermediate streams on, else the fine_tuned
             # stream at the experiment dir itself (reference
@@ -382,6 +441,13 @@ class FineTuner:
                     )
                 else:
                     self.pose.duplicate_last_depth_stream("fine_tuned", self.out_dir)
+
+        # validation at epoch 0, every val_epoch_freq epochs and after the
+        # last (reference depth_fine_tuning.py:415-432, 622-627); a
+        # frequency of 0 validates only at epoch 0 and after the last
+        val_freq = ft.val_epoch_freq
+        if val_freq >= 0:
+            self.validate(0, 0)
 
         for epoch in range(num_epochs):
             t0 = time.perf_counter()
@@ -411,6 +477,9 @@ class FineTuner:
                 self._log_epoch(total_iters, batch, n_pairs, losses_d, parts_d)
             total_iters += n_pairs
 
+            if val_freq > 0 and (epoch + 1) % val_freq == 0:
+                self.validate(epoch + 1, total_iters)
+
             if ft.save_checkpoints and (epoch + 1) % max(1, ft.save_epoch_freq) == 0:
                 ckpt_dir = pjoin(self.out_dir, "checkpoints") if self.out_dir else "checkpoints"
                 self.save_checkpoint(ckpt_dir, epoch + 1)
@@ -421,7 +490,7 @@ class FineTuner:
                 if persist:
                     save_current_depth()
 
-            if (epoch + 1) % max(1, ft.pose_opt_freq) == 0:
+            if use_solver and (epoch + 1) % max(1, ft.pose_opt_freq) == 0:
                 if persist and inter_freq > 0:
                     with persist_io():
                         self.pose.duplicate_last_depth_stream(
@@ -438,6 +507,9 @@ class FineTuner:
                     self.pose.duplicate_last_depth_stream(
                         f"e{epoch + 1:04d}", pjoin(self.out_dir, f"depth_e{epoch + 1:04d}")
                     )
+
+        if val_freq == 0 or (val_freq > 0 and num_epochs % val_freq != 0):
+            self.validate(num_epochs, total_iters)
 
         self.refresh_depth()
         if persist:
@@ -485,15 +557,146 @@ class FineTuner:
         self.writer.add_image("Train/flow_mask", self.clip.masks[0, 0].cpu().numpy()[None],
                               step, dataformats="CHW")
 
-    def validate(self, epoch: int, niters: int):
-        raise NotImplementedError(
-            "validation is not ported yet (importers and validation slice)"
-        )
+    def eval_pair_losses(self) -> List[Dict]:
+        """Per-pair loss breakdown (reference eval_and_save,
+        depth_fine_tuning.py:633-860): every pair in order, in batches of
+        batch_size on the device, read back once. Entries are
+        {"pair": [i, j], "loss": total, <part>: value, ...}, parts in name
+        order as the JAX package's scanned dict gives them."""
+        n_pairs = int(self.clip.pair_idx.shape[0])
+        batch = max(1, min(self.cfg.ft.batch_size, n_pairs))
+        ids = torch.arange(n_pairs, device=self.device)
+        totals, parts = [], []
+        with float32_precision(self.cudnn_tf32):
+            for s in range(0, n_pairs, batch):
+                t, p = eval_losses(
+                    self.net, self.optimizer.flat, self.optimizer.init, self.cfg.loss,
+                    ids[s : s + batch], self.clip, self.pose_state, self.use_temporal,
+                )
+                totals.append(t)
+                parts.append(p)
+        names = sorted(parts[0])
+        table = torch.stack(
+            [torch.cat(totals)] + [torch.cat([p[k] for p in parts]) for k in names], 1
+        ).cpu().numpy().astype(np.float64)
+        pair_idx = self.clip.pair_idx.cpu().numpy()
+        return [
+            {"pair": [int(x) for x in pair_idx[q]],
+             **{k: float(v) for k, v in zip(["loss"] + names, table[q])}}
+            for q in range(n_pairs)
+        ]
 
-    def eval_pair_losses(self):
-        raise NotImplementedError(
-            "per-pair eval losses are not ported yet (importers and validation slice)"
-        )
+    def save_eval_json(self, out_dir: str, epoch: int):
+        """eval_pair_losses as `loss_%04d.json` in `out_dir`."""
+        import json
+
+        os.makedirs(out_dir, exist_ok=True)
+        with open(pjoin(out_dir, f"loss_{epoch:04d}.json"), "w") as f:
+            json.dump(self.eval_pair_losses(), f, indent=1)
+
+    def validate(self, epoch: int, niters: int):
+        """Per-pair eval losses and artifacts (reference validate ->
+        eval_and_save, depth_fine_tuning.py:415-432, 633-860). Without
+        out_dir, returns eval_pair_losses(). Otherwise writes
+        eval/loss_e%04d_iter%06d.json ({loss name: {"[i, j]": value},
+        "mean": {loss name: mean}}), the eval depth images (.raw disparity
+        and .png) with save_eval_images or at the first and last epoch, the
+        depth-transform scale maps with save_depth_xform_maps, one
+        scene-flow image a pair with save_scene_flow_vis, and prints the
+        per-pair table; returns the loss dict."""
+        import json
+
+        from ..io import raw as raw_io
+        from ..io.store import save_png_color, save_png_gray
+        from ..utils.visualization import visualize_depth, visualize_scene_flow
+
+        if self.out_dir is None:
+            return self.eval_pair_losses()
+        ft = self.cfg.ft
+        eval_dir = pjoin(self.out_dir, "eval")
+        os.makedirs(eval_dir, exist_ok=True)
+        suf = f"_e{epoch:04d}_iter{niters:06d}"
+
+        entries = self.eval_pair_losses()
+        loss_dict: Dict[str, Dict[str, float]] = {}
+        for e in entries:
+            key = str(e["pair"])
+            for name, val in e.items():
+                if name != "pair":
+                    loss_dict.setdefault(name, {})[key] = val
+        loss_dict["mean"] = {
+            name: float(np.mean(list(vals.values()))) for name, vals in loss_dict.items()
+        }
+        with open(pjoin(eval_dir, f"loss{suf}.json"), "w") as f:
+            json.dump(loss_dict, f)
+        if self.writer is not None:
+            for name, mean in loss_dict["mean"].items():
+                self.writer.add_scalar(f"validation/{name}", mean, epoch)
+
+        depth = None
+        if ft.save_eval_images or epoch in (0, ft.num_epochs):
+            depth = self.infer_depth()
+            disparity = (1.0 / depth.clamp_min(1e-7)).cpu().numpy()
+            depth_np = depth.cpu().numpy()
+            dmax = float(disparity.max())
+            for i in range(depth_np.shape[0]):
+                pre = pjoin(eval_dir, f"depth_{i:06d}{suf}")
+                raw_io.save_raw_float32_image(pre + ".raw", disparity[i])
+                save_png_color(
+                    pre + ".png", visualize_depth(depth_np[i], depth_min=1.0 / max(dmax, 1e-7))
+                )
+
+        if ft.save_depth_xform_maps:
+            scales = self.pose_state.scales.cpu().numpy()
+            smax = float(scales.max())
+            for i in range(scales.shape[0]):
+                pre = pjoin(eval_dir, f"scale_{i:06d}{suf}")
+                raw_io.save_raw_float32_image(pre + ".raw", scales[i])
+                save_png_gray(
+                    pre + ".png",
+                    np.uint8(np.clip(scales[i] / max(smax, 1e-12), 0, 1) * 255),
+                )
+
+        if ft.save_scene_flow_vis:
+            # ref->trg 3D scene flow of every pair (reference
+            # depth_fine_tuning.py:653-737 save_scene_flow)
+            if depth is None:
+                depth = self.infer_depth()
+            pair_idx = self.clip.pair_idx.cpu().numpy()
+            for s, flow in self._scene_flow_chunks(depth * self.pose_state.scales):
+                for q in range(flow.shape[0]):
+                    i, j = (int(x) for x in pair_idx[s + q])
+                    save_png_color(
+                        pjoin(eval_dir, f"scene_flow_{i:06d}_{j:06d}{suf}.png"),
+                        visualize_scene_flow(flow[q]),
+                    )
+
+        # stdout table (reference depth_fine_tuning.py:826-858)
+        names = [n for n in loss_dict if n != "mean"]
+        for e in entries:
+            line = f"({e['pair'][0]:3d}, {e['pair'][1]:3d}): "
+            line += ", ".join(f"{n}: {e.get(n, 0.0):10.6f}" for n in names)
+            print(line)
+        print("Mean:        "
+              + ", ".join(f"{n}: {loss_dict['mean'][n]:10.6f}" for n in names))
+        return loss_dict
+
+    def _scene_flow_chunks(self, depth: torch.Tensor, chunk: int = 32):
+        """(start, (B, H, W, 3) numpy) per chunk of pairs: the world-space
+        displacement from each pixel of frame i to its flow match in frame
+        j, both lifted through `depth` (N, H, W) and the pose state."""
+        ps, clip = self.pose_state, self.clip
+        h, w = depth.shape[1:]
+        pix = geometry.pixel_grid((h, w), depth.device)
+        for s in range(0, clip.pair_idx.shape[0], chunk):
+            i, j = clip.pair_idx[s : s + chunk].unbind(1)
+            pts_i = geometry.pixels_to_points(ps.intrinsics[i][:, None, None], depth[i], pix)
+            world_i = geometry.points_cam_to_world(pts_i, ps.extrinsics[i][:, None, None])
+            match = pix + clip.flows[s : s + chunk, 0]
+            d_j = geometry.grid_sample(depth[j][..., None], match)[..., 0]
+            pts_j = geometry.pixels_to_points(ps.intrinsics[j][:, None, None], d_j, match)
+            world_j = geometry.points_cam_to_world(pts_j, ps.extrinsics[j][:, None, None])
+            yield s, (world_j - world_i).cpu().numpy()
 
     def refresh_depth(self):
         """Re-infer the clip's depth with the current weights, then refresh

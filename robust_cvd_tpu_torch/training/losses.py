@@ -3,8 +3,9 @@
 Port of robust_cvd_tpu/training/losses.py (reference loss/*.py): the
 consistency loss (reprojection, disparity and depth-ratio terms), the
 scene-flow loss (static and temporal), disparity smoothness, contrast and
-the parameter loss, with Barron's robust distances, summed by
-`joint_loss` into the same total and the same `parts` keys. Bilinear
+the parameter loss, with Barron's robust distances, summed per sample by
+`pair_losses` and over the batch by `joint_loss` into the same total and
+the same `parts` keys. Bilinear
 sampling is ops/geometry.py::grid_sample in pixel coordinates with a
 border clamp, as in the JAX package.
 
@@ -279,8 +280,9 @@ def disparity_smooth_loss(images, depths, opt: LossParams):
     return per_batch.mean(), {"disparity_smooth": per_batch}
 
 
-def contrast_loss(depths_orig, depths, opt: LossParams):
-    """(reference loss/contrast_loss.py:8-79). Shapes (B, N, H, W)."""
+def _contrast_terms(depths_orig, depths, opt: LossParams):
+    """The horizontal and vertical hinge terms of the contrast loss,
+    (B*N, H, W) each. Shapes (B, N, H, W)."""
     h, w = depths.shape[-2:]
     x_orig = depths_orig.reshape(-1, h, w)
     x_pred = depths.reshape(-1, h, w)
@@ -302,7 +304,13 @@ def contrast_loss(depths_orig, depths, opt: LossParams):
     zero = depths.new_zeros(())
     lh = torch.maximum(torch.square(thresh - rh_p), zero) * (rh_o > thresh)
     lv = torch.maximum(torch.square(thresh - rv_p), zero) * (rv_o > thresh)
-    n = x_pred.shape[0]
+    return lh, lv
+
+
+def contrast_loss(depths_orig, depths, opt: LossParams):
+    """(reference loss/contrast_loss.py:8-79). Shapes (B, N, H, W)."""
+    lh, lv = _contrast_terms(depths_orig, depths, opt)
+    n = lh.shape[0]
     return opt.lambda_contrast_loss * (lh.sum() / n + lv.sum() / n)
 
 
@@ -321,6 +329,69 @@ def parameter_loss(params, params_init, opt: LossParams):
 # ---------------------------------------------------------------------------
 
 
+def _flow_losses(opt: LossParams) -> list:
+    """The enabled flow-driven losses, in joint_loss's order."""
+    fns = []
+    if (
+        opt.lambda_static_disparity > 0
+        or opt.lambda_static_reprojection > 0
+        or opt.lambda_static_depth_ratio > 0
+    ):
+        fns.append(consistency_loss)
+    if (
+        opt.lambda_scene_flow_static > 0
+        or opt.lambda_smooth_reprojection > 0
+        or opt.lambda_smooth_disparity > 0
+        or opt.lambda_smooth_depth_ratio > 0
+    ):
+        fns.append(scene_flow_loss)
+    return fns
+
+
+def pair_losses(
+    opt: LossParams,
+    images,
+    depths_orig,
+    depths,
+    meta: LossMeta,
+    params=None,
+    params_init=None,
+):
+    """The enabled losses (reference loss/joint_loss.py:18-103) of each
+    sample of the batch on its own: totals (B,) and parts {name: (B,)},
+    what `joint_loss` gives a batch of that one sample (the per-pair eval,
+    reference depth_fine_tuning.py:756-817)."""
+    b, n = depths.shape[:2]
+    total = depths.new_zeros((b,))
+    parts: Dict[str, torch.Tensor] = {}
+
+    if opt.lambda_parameter > 0:
+        p = parameter_loss(params, params_init, opt)
+        total = total + p
+        parts["parameter_loss"] = p.expand(b)
+
+    for fn in _flow_losses(opt):
+        _, bl = fn(depths, meta, opt)
+        if bl:
+            total = total + sum(bl.values())
+            parts.update(bl)
+
+    if opt.lambda_disparity_smooth > 0:
+        _, bl = disparity_smooth_loss(images, depths, opt)
+        total = total + bl["disparity_smooth"]
+        parts.update(bl)
+
+    if opt.lambda_contrast_loss > 0:
+        lh, lv = _contrast_terms(depths_orig, depths, opt)
+        c = opt.lambda_contrast_loss * (
+            lh.reshape(b, -1).sum(1) / n + lv.reshape(b, -1).sum(1) / n
+        )
+        total = total + c
+        parts["contrast"] = c
+
+    return total, parts
+
+
 def joint_loss(
     opt: LossParams,
     images,
@@ -330,42 +401,14 @@ def joint_loss(
     params=None,
     params_init=None,
 ):
-    """Sum of the enabled losses (reference loss/joint_loss.py:18-103)."""
-    total = depths.new_zeros(())
-    batch_losses: Dict[str, torch.Tensor] = {}
-
-    if opt.lambda_parameter > 0:
-        p = parameter_loss(params, params_init, opt)
-        total = total + p
-        batch_losses["parameter_loss"] = p[None]
-
-    if (
-        opt.lambda_static_disparity > 0
-        or opt.lambda_static_reprojection > 0
-        or opt.lambda_static_depth_ratio > 0
-    ):
-        c, bl = consistency_loss(depths, meta, opt)
-        total = total + c
-        batch_losses.update(bl)
-
-    if (
-        opt.lambda_scene_flow_static > 0
-        or opt.lambda_smooth_reprojection > 0
-        or opt.lambda_smooth_disparity > 0
-        or opt.lambda_smooth_depth_ratio > 0
-    ):
-        s, bl = scene_flow_loss(depths, meta, opt)
-        total = total + s
-        batch_losses.update(bl)
-
-    if opt.lambda_disparity_smooth > 0:
-        d, bl = disparity_smooth_loss(images, depths, opt)
-        total = total + d
-        batch_losses.update(bl)
-
-    if opt.lambda_contrast_loss > 0:
-        c = contrast_loss(depths_orig, depths, opt)
-        total = total + c
-        batch_losses["contrast"] = c[None]
-
-    return total, batch_losses
+    """Sum of the enabled losses over the batch: the mean of `pair_losses`'
+    totals, with its parts; the parameter and contrast losses are one value
+    for the batch, shape (1,)."""
+    total, parts = pair_losses(
+        opt, images, depths_orig, depths, meta, params, params_init
+    )
+    if "parameter_loss" in parts:
+        parts["parameter_loss"] = parts["parameter_loss"][:1]
+    if "contrast" in parts:
+        parts["contrast"] = parts["contrast"].mean()[None]
+    return total.mean(), parts

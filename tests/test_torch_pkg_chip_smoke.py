@@ -15,10 +15,12 @@ import json
 import os
 import sys
 
+import pytest
 import torch
 
 import chip_smoke
 from robust_cvd_tpu_torch.models import midas, raft
+from torch_pkg_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_path_phase_on_cpu(monkeypatch, capsys, tmp_path):
@@ -36,6 +38,13 @@ def test_path_phase_on_cpu(monkeypatch, capsys, tmp_path):
     out = capsys.readouterr().out
     assert "stage fine_tune_s" in out and out.count("solve {") == 6  # 5 cold, 1 warm
     assert "1 host sync in the train loop" in out
+
+    # the validate and colmap phases on the same clip and tuner
+    chip_smoke.validate_phase(tuner, device="cpu")
+    assert "stage validate_s" in capsys.readouterr().out
+    assert chip_smoke.colmap_phase(base, net, 0, device="cpu") == 0
+    out = capsys.readouterr().out
+    assert "stage colmap_fine_tune_s" in out and "0 solves" in out
 
 
 def test_flow_phase_on_cpu(monkeypatch, capsys, tmp_path):
@@ -84,6 +93,34 @@ def test_pipeline_phase_on_cpu(monkeypatch, capsys, tmp_path):
         base, "R0-7_hierarchical2_midas2", "stage_timings.json")))["spans"]]
     assert set(chip_smoke.PIPELINE_SPANS) <= set(names)
     assert proc.device.type == "cpu" and len(proc.tuner.history) == 1
+
+
+def test_quality_phase_checks(monkeypatch, capsys):
+    """The quality phase's holds, on stand-in gate results: the JAX package's
+    values pass; a gate more than GATE_SLACK below, or a contamination gate
+    without exclusion too close to the one with it, fails."""
+    from robust_cvd_tpu_torch import quality
+
+    def use(values):
+        for name in chip_smoke.QUALITY_GATES:
+            keys = {"static_quality_gate": ["quality_gap_closed"],
+                    "dynamic_solver_gate": ["quality_gap_closed_dynamic",
+                                            "quality_gap_closed_dynamic_vs_floor",
+                                            "spatial_warp_recovery"],
+                    "contaminated_constraint_gate": [
+                        "quality_gap_closed_contaminated",
+                        "quality_gap_closed_contaminated_no_exclusion"]}[name]
+            monkeypatch.setattr(quality, name, lambda tiny, device, keys=keys: {
+                k: values[k] for k in keys})
+
+    use(chip_smoke.JAX_GATES)
+    assert chip_smoke.quality_phase(device="cpu") == chip_smoke.JAX_GATES
+    assert "stage quality_s" in capsys.readouterr().out
+    for key, value in (("spatial_warp_recovery", 0.85),
+                       ("quality_gap_closed_contaminated_no_exclusion", 0.7)):
+        use(dict(chip_smoke.JAX_GATES, **{key: value}))
+        with pytest.raises(AssertionError, match=key):
+            chip_smoke.quality_phase(device="cpu")
 
 
 def test_small_tuner_steps_on_cpu():

@@ -183,11 +183,16 @@ def test_unported_fine_tune_paths_raise(runs):
     def ft(**kw):
         return dataclasses.replace(cfg, ft=dataclasses.replace(cfg.ft, **kw))
 
-    for c in (ft(optimizer="RAdam"), ft(optimizer_mu_bf16=True), ft(val_epoch_freq=1),
-              dataclasses.replace(cfg, post_filter=True),
-              dataclasses.replace(cfg, recon="colmap")):
+    for c in (ft(optimizer="RAdam"), ft(optimizer_mu_bf16=True),
+              dataclasses.replace(cfg, post_filter=True)):
         with pytest.raises(NotImplementedError):
             FineTuner(c, tuner.adapter, tuner.clip, tuner.pose_inputs, device="cpu")
+    # validation and recon=colmap are ported (tests/test_torch_pkg_validation.py);
+    # recon=colmap needs the COLMAP poses, as in the JAX package
+    FineTuner(ft(val_epoch_freq=1), tuner.adapter, tuner.clip, tuner.pose_inputs, device="cpu")
+    with pytest.raises(ValueError, match="pose_state_override"):
+        FineTuner(dataclasses.replace(cfg, recon="colmap"), tuner.adapter, tuner.clip,
+                  tuner.pose_inputs, device="cpu")
     with pytest.raises(NotImplementedError):
         FineTuner(cfg, tuner.adapter, tuner.clip, tuner.pose_inputs, mesh=object(),
                   device="cpu")
@@ -206,7 +211,9 @@ def test_unported_fine_tune_paths_raise(runs):
     assert store.num_frames == N and len(proc.tuner.history) == 1
     assert os.path.exists(os.path.join(proc.out_dir(N), "stage_timings.json"))
     assert "fine_tune" in proc.tracer.summary()
+    # recon=colmap runs; without a COLMAP reconstruction it says which file
+    # it needs
     colmap = TProcessor(dataclasses.replace(cfg, recon="colmap"),
                         models=runs["tproc"].models, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError, match="metadata.npz"):
         colmap.fine_tune(runs["tstore"], np.ones((N, H, W), np.float32))

@@ -49,7 +49,9 @@ def test_import_loads_no_jax():
         env=env, timeout=300,
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    assert len(_port_modules()) >= 46
+    assert len(_port_modules()) >= 49
+    for m in ("quality", "io.colmap", "io.importers"):
+        assert f"robust_cvd_tpu_torch.{m}" in _port_modules()
 
 
 def _imported_names(path):
@@ -65,7 +67,7 @@ def _imported_names(path):
 def test_sources_import_no_jax_or_jax_package():
     files = [os.path.join(REPO, p) for p in (
         "chip_smoke.py", "tools/sweep_corner_cuda.py", "tools/time_kernels_cuda.py",
-        "tools/flow_path_cuda.py", "tools/pipeline_cuda.py")]
+        "tools/flow_path_cuda.py", "tools/pipeline_cuda.py", "tools/quality_cuda.py")]
     for root, _, names in os.walk(PKG_DIR):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = []
@@ -211,6 +213,12 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch, tmp_path):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         FineTuner(PipelineConfig(), MidasV2Adapter(MidasNet(32, (1, 1, 1, 1))), clip, None)
+    from robust_cvd_tpu_torch import quality
+
+    for gate in (quality.static_quality_gate, quality.dynamic_solver_gate,
+                 quality.contaminated_constraint_gate):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            gate(tiny=True)
     assert resolve_device("cpu").type == "cpu"
 
 

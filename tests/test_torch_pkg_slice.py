@@ -160,8 +160,11 @@ def test_unported_paths_raise(runs, tmp_path):
         flags = ransac.pairs[k].is_static
         assert flags.dtype == bool and len(flags) == len(ransac.pairs[k].loc0)
     assert np.mean(np.concatenate([ransac.pairs[k].is_static for k in ransac.pair_keys])) > 0.9
+    # a depth_gt/ directory is imported as a stream ahead of the estimated
+    # one (tests/test_torch_pkg_importers.py holds the importers)
     gt = str(tmp_path / "clip")
     shutil.copytree(runs["tdir"], gt)
     os.makedirs(os.path.join(gt, "depth_gt"))
-    with pytest.raises(NotImplementedError):
-        TPose(runs["tcfg"], TStore.open(gt), "depth_midas2", device="cpu")
+    imported = TPose(runs["tcfg"], TStore.open(gt), "depth_midas2", device="cpu")
+    assert [s.name for s in imported.streams] == ["depth_gt", "depth_midas2"]
+    assert imported.initial_camera is None
