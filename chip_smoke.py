@@ -18,21 +18,32 @@ Phases, each of which raises on failure (exit code 1):
      tests/test_torch_pkg_corner.py (every ragged path of the kernel), on a
      non-contiguous input, at N = 0 and at N = 70,000 frames (tolerance
      1e-4 * max|ref| + 1e-5);
-   - Adam at the full-width MiDaS-v2 parameter count and at 1,000,003, with
-     bias correction on and off, at step counts 0 and 7: mu', nu' and the
-     update p' - p within 1e-4 * max|ref| + 1e-7; with the guard flag false
-     all four buffers stay bitwise unchanged.
+   - Adam at the full-width MiDaS-v2 parameter count and at 1,000,003 in
+     each of its modes: adam_pl (no bias correction) and optax.adam at step
+     counts 0 and 7, optax.radam at 0, 4, 5 and 7 (its rectification turns
+     on between steps 5 and 6), optax.adam with a bf16 first moment at 0
+     and 7: mu', nu' and the update p' - p within 1e-4 * max|ref| + 1e-7;
+     with the guard flag false all four buffers stay bitwise unchanged. The
+     kernels line has an entry for optax.adam (adam), optax.radam
+     (adam_radam, beside one call of torch.optim.RAdam(foreach=True))
+     and the bf16
+     first moment (adam_mu_bf16, no PyTorch call to compare).
 3. solver: the pose solve of a small exact-reprojection problem on the card
-   against the same solve on the CPU (poses within 1e-3).
+   against the same solve on the CPU (poses within 1e-3); the same cold
+   solve on the card with the exact diagonal off and 4 Hutchinson probes
+   an outer step (at most 10 LM steps a solve) ends each LM solve below
+   its start.
 4. train step: two FineTuner steps of the small MiDaS net (features 32,
    backbone (1, 1, 1, 1)) on a 4-frame 32x64 clip on the card (Adam kernel)
-   and on the CPU (plain Adam), convolutions without TF32: losses, BatchNorm
-   statistics and parameters within 1e-4 relative, mu and nu within 1e-3
-   (each against the largest magnitude of its flat buffer; step_phase says
-   why).
-5. pose path: a synthetic 224x384 clip (a seeded texture panning by a fixed
-   number of pixels per frame, hierarchical2 pairs, exact flows, in-bounds
-   consistency masks) goes through the port's entry points: initial depth
+   and on the CPU (plain Adam), convolutions without TF32, with Adam, RAdam
+   and the bf16 first moment: losses, BatchNorm statistics and parameters
+   within 1e-4 relative, mu and nu within 1e-3 (each against the largest
+   magnitude of its flat buffer; a bf16 mu also one bf16 ulp; step_phase
+   says why).
+5. pose path: a synthetic 224x384 clip of POSE_CLIP_FRAMES frames (a
+   seeded texture panning by a fixed number of pixels per frame,
+   hierarchical2 pairs, exact flows, in-bounds consistency masks) goes
+   through the port's entry points: initial depth
    with the full-width MiDaS-v2 (seeded random weights unless
    <clip>/models/midas_v21-f6b98070.pt exists), PoseOptimizer (whose
    constructor builds the flow constraints through the corner kernel) and a
@@ -89,7 +100,12 @@ Phases, each of which raises on failure (exit code 1):
    its in-bounds share (within 0.02), dynamic masks at least 99% static,
    the corner kernel launched at least once a flow chunk plus once for the
    constraints, one Adam launch a train step with none skipped, and the
-   solves. Prints the stage table and pipeline_s_per_frame.
+   solves. --post_filter is on: the fine_tuned_filtered stream holds finite,
+   positive depth, and its first 8 frames equal the CPU's filter of the
+   same inputs within 1e-4 relative. Prints the stage table,
+   pipeline_s_per_frame (without the post filter, as before it) and
+   post_filter_s, then profiles the filter alone at full width (seconds,
+   device ms, peak memory, bytes bounds).
 13. quality: the four golden-scene gates of robust_cvd_tpu_torch/quality.py
    at full size (tiny=False: 8 frames at 96x128) on the card: static,
    dynamic with the spatial-warp recovery, and contaminated constraints with
@@ -100,11 +116,19 @@ Phases, each of which raises on failure (exit code 1):
 14. eval, card vs CPU: eval_pair_losses of the small tuner of phase 4 on the
    card and on the CPU (no TF32), per-pair totals and parts within 1e-4
    relative.
-15. validate: FineTuner.validate on phase 6's tuner (the 100-frame clip,
-   full width) with the eval images, the scale maps and the scene-flow
+15. validate: FineTuner.validate on phase 6's tuner (the pose clip, full
+   width) with the eval images, the scale maps and the scene-flow
    images on: every file the JAX package writes (eval/loss_e*_iter*.json,
    depth_*, scale_*, scene_flow_*) is there and every loss is finite.
-16. colmap: a COLMAP model of the pose clip's known cameras (a camera
+16. processor: the 13 ops of pipeline/processor.py through
+   Processor.process on the pose clip with the fine-tune phase's cameras
+   (processor_phase: the filters on the whole clip and, card vs CPU, on its
+   first 16 frames; compute_tracks with one corner launch and tracks that
+   follow the pan; the solver ops on an 8-frame clip at full width).
+17. optimizers: one fine-tune epoch of FineTuner.run with optax.radam and
+   one with a bf16 first moment on the fine-tune phase's clip and poses:
+   one launch of the kernel's mode a step, none skipped.
+18. colmap: a COLMAP model of the pose clip's known cameras (a camera
    moving SHIFT px a frame along x over a fronto-parallel plane) written by
    io/colmap.py's writers and converted by model_to_npz, the plane's
    disparity as depth_colmap_dense/, then DatasetProcessor.fine_tune with
@@ -132,6 +156,11 @@ import time
 import numpy as np
 
 H, W = 224, 384  # color_down of the bench clip (bench.py)
+# The pose clip's length (the pose path and the phases on its clip:
+# fine-tune, profile, validate, processor, optimizers, colmap); the flow and
+# pipeline phases keep --frames. It was 100 until the script outgrew its
+# 950 s budget (978.0 s on an H100 with the processor and optimizer phases).
+POSE_CLIP_FRAMES = 50
 SHIFT = 2  # px a frame of the synthetic clips' panning
 # Sizes of the flow store's color_down and color_flow (size or max size,
 # align), as the pipeline makes them (pipeline/process.py).
@@ -343,105 +372,161 @@ def corner_entry(gray, err: float) -> dict:
 
 
 ADAM_REPLACES = "tools/probe_adam_bw.py:105"
+# The Adam kernel's entries in the kernels line: (name, FlatAdam options,
+# bytes moved per element, ~flops per element). Modes 2 and 3 of
+# csrc/adam.cu are optax.radam and optax.adam(mu_dtype=bfloat16).
+ADAM_ENTRIES = (
+    ("adam", dict(), 28, 14),
+    ("adam_radam", dict(rectified=True), 28, 16),
+    ("adam_mu_bf16", dict(mu_bf16=True), 24, 14),
+)
+# (label, bias correction, rectified, bf16 mu, step counts checked): every
+# mode of the kernel; RAdam's ro_t crosses 5 between steps 5 and 6 (counts 4
+# and 5)
+ADAM_CHECKS = (
+    ("adam", True, False, False, (0, 7)),
+    ("adam", False, False, False, (0, 7)),
+    ("adam_radam", True, True, False, (0, 4, 5, 7)),
+    ("adam_mu_bf16", True, False, True, (0, 7)),
+)
 
 
-def adam_phase(n_full: int, seed: int) -> dict:
-    """The Adam kernel against its plain version; its kernels-line entry
-    (timed at n_full with bias correction, as on the fine-tune path)."""
+def adam_phase(n_full: int, seed: int) -> list:
+    """The Adam kernel in each of its modes against its plain version; the
+    kernels-line entries of optax.adam, optax.radam and the bf16 first
+    moment (timed at n_full, as on the fine-tune path)."""
     import torch
 
     from robust_cvd_tpu_torch.ops import adam
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     lr = 1e-4
-    result = {}
-    worst = 0.0
+    worst = dict.fromkeys((e[0] for e in ADAM_ENTRIES), 0.0)
+    entries = []
     for n in (n_full, 1_000_003):
         base = [torch.randn(n, generator=g, device="cuda") for _ in range(3)]
         base.append(torch.rand(n, generator=g, device="cuda") * 1e-2)  # nu >= 0
         base[1].mul_(1e-2)
-        for bias in (True, False):
-            for count0 in (0, 7):
+        for label, bias, rectified, bf16, counts in ADAM_CHECKS:
+            start = list(base)
+            if bf16:
+                start[2] = base[2].to(torch.bfloat16)
+            for count0 in counts:
                 count = torch.tensor(count0, dtype=torch.int32, device="cuda")
                 ok = torch.ones((), dtype=torch.bool, device="cuda")
-                got = [t.clone() for t in base]
-                ref = [t.clone() for t in base]
-                adam.adam_update(*got, count, ok, lr, bias_correction=bias)
+                got = [t.clone() for t in start]
+                ref = [t.clone() for t in start]
+                adam.adam_update(*got, count, ok, lr, bias_correction=bias, rectified=rectified)
                 torch.cuda.synchronize()
-                adam.adam_update_plain(*ref, count, ok, lr, bias_correction=bias)
+                adam.adam_update_plain(*ref, count, ok, lr, bias_correction=bias,
+                                       rectified=rectified)
                 for what, a, b in (("update", got[0] - base[0], ref[0] - base[0]),
-                                   ("mu", got[2], ref[2]), ("nu", got[3], ref[3])):
+                                   ("mu", got[2].float(), ref[2].float()),
+                                   ("nu", got[3], ref[3])):
                     err = (a - b).abs().max().item()
                     tol = 1e-4 * b.abs().max().item() + 1e-7
-                    worst = max(worst, err)
+                    worst[label] = max(worst[label], err)
                     if not err <= tol:
                         raise AssertionError(
-                            f"Adam kernel {what} disagrees at n={n}, bias correction "
-                            f"{bias}, count {count0}: {err:.3e} > {tol:.3e}")
+                            f"Adam kernel ({label}) {what} disagrees at n={n}, bias "
+                            f"correction {bias}, count {count0}: {err:.3e} > {tol:.3e}")
                 if int(count) != count0:
                     raise AssertionError("the Adam kernel wrote the step count")
-        skip = [t.clone() for t in base]
-        adam.adam_update(*skip, count, torch.zeros_like(ok), lr)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(skip, base)):
-            raise AssertionError("the Adam kernel wrote with its guard flag false")
-        print(f"adam n={n}: kernel vs plain max|err| {worst:.3e} over mu, nu and the "
-              f"update (bias correction on/off, count 0/7); guard false leaves all "
-              f"four buffers bitwise unchanged")
+            skip = [t.clone() for t in start]
+            adam.adam_update(*skip, count, torch.zeros_like(ok), lr, bias_correction=bias,
+                             rectified=rectified)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(skip, start)):
+                raise AssertionError(f"the Adam kernel ({label}) wrote with its guard flag false")
+            print(f"adam n={n} {label}: kernel vs plain max|err| {worst[label]:.3e} over mu, "
+                  f"nu and the update (bias correction {bias}, counts {counts}); guard false "
+                  f"leaves all four buffers bitwise unchanged")
         if n == n_full:
-            # one set of buffers (7 x 4 B x n = 2.95 GB a launch) is far
-            # larger than the L2, so back-to-back launches reuse it cold
-            count = torch.zeros((), dtype=torch.int32, device="cuda")
-            ok = torch.ones((), dtype=torch.bool, device="cuda")
-            bufs = [t.clone() for t in base]
-            fn = adam._kernel()
-            stream = torch.cuda.current_stream().cuda_stream
-            ptrs = [t.data_ptr() for t in bufs]
-
-            def launch(_):
-                if fn(*ptrs, n, lr, 0.9, 0.999, 1e-8, 1, count.data_ptr(),
-                      ok.data_ptr(), stream):
-                    raise RuntimeError("adam kernel launch failed")
-
-            ms = back_to_back_ms(launch)
-            call_ms = time_ms(lambda: adam.adam_update(*bufs, count, ok, lr))
-            plain_ms = time_ms(lambda: adam.adam_update_plain(*bufs, count, ok, lr))
-            flat = torch.nn.Parameter(base[0].clone())
-            flat.grad = base[1].clone()
-            lib = torch.optim.Adam([flat], lr=lr, fused=True)
-            library_ms = back_to_back_ms(lambda _: lib.step())
-            nbytes = 7 * 4.0 * n  # 4 streams in, 3 out
-            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-            ops_ms = 14.0 * n / PEAK_F32_FLOPS * 1e3  # ~14 flops per element
-            result = {
-                "name": "adam",
-                "route": "cuda",
-                "source": "robust_cvd_tpu_torch/csrc/adam.cu",
-                "replaces": ADAM_REPLACES,
-                "max_abs_err": worst,
-                "ms": ms,
-                "call_ms": call_ms,
-                "plain_ms": plain_ms,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": library_ms,
-                "gbps": nbytes / ms * 1e-6,
-                "share_of_bound": max(bytes_ms, ops_ms) / ms,
-            }
-            print(f"adam n={n}: kernel {ms:.4f} ms back to back ({result['gbps']:.1f} GB/s, "
-                  f"{result['share_of_bound']:.3f} of the bound), one wrapper call "
-                  f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.optim.Adam(fused=True) "
-                  f"{library_ms:.4f} ms back to back, bound {result['bound_ms']:.4f} ms")
-            del bufs, flat, lib
+            for name, options, per_elem, flops in ADAM_ENTRIES:
+                entries.append(adam_entry(name, options, per_elem, flops, base, lr,
+                                          worst[name]))
         del base
     torch.cuda.empty_cache()
+    return entries
+
+
+def adam_entry(name: str, options: dict, per_elem: int, flops: int, base, lr: float,
+               err: float) -> dict:
+    """Times one mode of the Adam kernel on copies of `base` (p, g, mu, nu;
+    4-7 x 4 B x n, far larger than the L2, so back-to-back launches find
+    them cold), its wrapper, its plain version and the PyTorch library call
+    where one exists; returns its kernels-line entry."""
+    import torch
+
+    from robust_cvd_tpu_torch.ops import adam
+
+    rectified, bf16 = options.get("rectified", False), options.get("mu_bf16", False)
+    n = base[0].numel()
+    count = torch.zeros((), dtype=torch.int32, device="cuda")
+    ok = torch.ones((), dtype=torch.bool, device="cuda")
+    bufs = [t.clone() for t in base]
+    if bf16:
+        bufs[2] = bufs[2].to(torch.bfloat16)
+    mode = adam._mode(bufs[2], True, rectified)
+    fn = adam._kernel()
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in bufs]
+
+    def launch(_):
+        if fn(*ptrs, n, lr, 0.9, 0.999, 1e-8, mode, count.data_ptr(), ok.data_ptr(), stream):
+            raise RuntimeError("adam kernel launch failed")
+
+    ms = back_to_back_ms(launch)
+    call_ms = time_ms(lambda: adam.adam_update(*bufs, count, ok, lr, rectified=rectified))
+    plain_ms = time_ms(lambda: adam.adam_update_plain(*bufs, count, ok, lr, rectified=rectified))
+    library_ms, library = None, "none: no single PyTorch call keeps a bf16 first moment"
+    if not bf16:
+        flat = torch.nn.Parameter(base[0].clone())
+        flat.grad = base[1].clone()
+        if rectified:
+            # its step enqueues for longer (about 3.5 ms) than the spin ahead
+            # of a back-to-back run lasts, so it is timed one call at a time,
+            # host included, as call_ms is
+            lib = torch.optim.RAdam([flat], lr=lr, foreach=True)
+            library = "RAdam(foreach=True), one call"
+            library_ms = time_ms(lib.step)
+        else:
+            lib = torch.optim.Adam([flat], lr=lr, fused=True)
+            library = "Adam(fused=True)"
+            library_ms = back_to_back_ms(lambda _: lib.step())
+        del flat, lib
+    nbytes = per_elem * float(n)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops * float(n) / PEAK_F32_FLOPS * 1e3
+    result = {
+        "name": name,
+        "route": "cuda",
+        "source": "robust_cvd_tpu_torch/csrc/adam.cu",
+        "replaces": ADAM_REPLACES,
+        "max_abs_err": err,
+        "ms": ms,
+        "call_ms": call_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+        "gbps": nbytes / ms * 1e-6,
+        "share_of_bound": max(bytes_ms, ops_ms) / ms,
+    }
+    print(f"{name} n={n}: kernel {ms:.4f} ms back to back ({result['gbps']:.1f} GB/s, "
+          f"{result['share_of_bound']:.3f} of the bound), one wrapper call {call_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {result['bound_ms']:.4f} ms ({per_elem} B a "
+          f"parameter); library call {library}"
+          + ("" if library_ms is None else f" {library_ms:.4f} ms"))
+    del bufs
     return result
 
 
-def small_tuner(device: str, seed: int, n: int = 4, h: int = 32, w: int = 64):
+def small_tuner(device: str, seed: int, n: int = 4, h: int = 32, w: int = 64, **ft_options):
     """A FineTuner of the small MiDaS net on an n-frame h x w clip (seeded
     images, depths, flows and masks; a pose state from seeded poses, a 2x3
-    depth grid and a spatial warp), convolutions without TF32.
+    depth grid and a spatial warp), convolutions without TF32; `ft_options`
+    go to its FineTuneParams (the optimizer).
 
     The net's BatchNorms ahead of a ReLU get a bias of +3. With random
     weights about a quarter of such small configurations have a ReLU input
@@ -479,7 +564,7 @@ def small_tuner(device: str, seed: int, n: int = 4, h: int = 32, w: int = 64):
         for name, m in net.named_modules():
             if isinstance(m, midas.BatchNorm2d) and not name.endswith("bn3"):
                 m.bias.fill_(3.0)
-    cfg = PipelineConfig(ft=FineTuneParams(save_tensorboard=False))
+    cfg = PipelineConfig(ft=FineTuneParams(save_tensorboard=False, **ft_options))
     clip = build_clip_data(images, depth, flow_list, flows, masks, 0.2, device=device)
     tuner = FineTuner(cfg, midas.MidasV2Adapter(net), clip, None, device=device,
                       cudnn_tf32=False)
@@ -489,9 +574,19 @@ def small_tuner(device: str, seed: int, n: int = 4, h: int = 32, w: int = 64):
     return tuner
 
 
+# The optimizers of the fine-tune path: (name, FineTuneParams options, the
+# Adam kernel's mode)
+OPTIMIZERS = (
+    ("adam", dict(), "adam"),
+    ("radam", dict(optimizer="RAdam"), "radam"),
+    ("mu_bf16", dict(optimizer_mu_bf16=True), "adam_mu_bf16"),
+)
+
+
 def step_phase(seed: int) -> None:
     """Two train steps of the small net on the card (Adam kernel) and on the
-    CPU (plain Adam), without TF32 on either. Losses, parameters and
+    CPU (plain Adam), without TF32 on either, with each optimizer: Adam,
+    RAdam and Adam with a bf16 first moment. Losses, parameters and
     BatchNorm statistics agree within 1e-4 relative; mu and nu within 1e-3:
     the head's 1x1 convolution (scratch.output_conv.4) sums 8,192 products
     with heavy cancellation into each weight gradient, card and CPU sum
@@ -499,13 +594,16 @@ def step_phase(seed: int) -> None:
     and in float32 mu there differs by up to 3.5e-4 of the largest gradient
     and nu, a square, by up to 4.2e-4 (14 runs on the H100, 3 seeds; the
     CPU's float32 step differs from its float64 step as much), while every
-    other tensor agreed within 1e-5."""
+    other tensor agreed within 1e-5. A bf16 mu rounds two such values to
+    neighbouring bf16 numbers, so there each element may also differ by one
+    bf16 ulp of its value."""
     import torch
 
     from robust_cvd_tpu_torch.models import midas
+    from robust_cvd_tpu_torch.ops import adam
 
-    def run(device):
-        tuner = small_tuner(device, seed)
+    def run(device, options):
+        tuner = small_tuner(device, seed, **options)
         losses = []
         for ids in ((2, 0), (1, 3)):
             loss, _, ok = tuner.train_step(torch.tensor(ids, device=device))
@@ -515,29 +613,35 @@ def step_phase(seed: int) -> None:
         opt = tuner.optimizer
         stats = torch.cat([torch.cat([m.running_mean, m.running_var])
                            for m in midas.batch_norms(tuner.net)])
-        return losses, {"params": opt.flat, "mu": opt.mu, "nu": opt.nu,
+        return losses, {"params": opt.flat, "mu": opt.mu.float(), "nu": opt.nu,
                         "batch_stats": stats, "count": opt.count}
 
-    from robust_cvd_tpu_torch.ops import adam
-
-    before = adam.adam_update.launches
-    gpu_losses, gpu = run("cuda")
-    if adam.adam_update.launches != before + 2:
-        raise AssertionError("the card's train steps did not launch the Adam kernel")
-    cpu_losses, cpu = run("cpu")
-    err = max(abs(a - b) / abs(b) for a, b in zip(gpu_losses, cpu_losses))
-    report = [f"losses {err:.3e} (1e-4)"]
-    ok = err <= 1e-4
-    for name, tol in (("params", 1e-4), ("batch_stats", 1e-4), ("mu", 1e-3), ("nu", 1e-3)):
-        a, b = gpu[name].cpu(), cpu[name]
-        rel = ((a - b).abs().max() / b.abs().max()).item()
-        report.append(f"{name} {rel:.3e} ({tol:g})")
-        ok = ok and rel <= tol
-    ok = ok and int(gpu["count"]) == int(cpu["count"]) == 2
-    print("train step, card vs CPU (2 steps, small net, 4x32x64, no TF32): relative "
-          "max|err| (tolerance) " + ", ".join(report))
-    if not ok:
-        raise AssertionError("the train step on the card disagrees with the CPU")
+    for label, options, mode in OPTIMIZERS:
+        before = adam.adam_update.launches_by_mode[mode]
+        gpu_losses, gpu = run("cuda", options)
+        if adam.adam_update.launches_by_mode[mode] != before + 2:
+            raise AssertionError(f"the card's train steps ({label}) did not launch the "
+                                 f"Adam kernel's {mode} mode")
+        cpu_losses, cpu = run("cpu", options)
+        err = max(abs(a - b) / abs(b) for a, b in zip(gpu_losses, cpu_losses))
+        report = [f"losses {err:.3e} (1e-4)"]
+        ok = err <= 1e-4
+        for name, tol in (("params", 1e-4), ("batch_stats", 1e-4), ("mu", 1e-3), ("nu", 1e-3)):
+            a, b = gpu[name].cpu(), cpu[name]
+            diff = (a - b).abs()
+            rel = (diff.max() / b.abs().max()).item()
+            report.append(f"{name} {rel:.3e} ({tol:g})")
+            if name == "mu" and label == "mu_bf16":
+                # one bf16 ulp of each element on top of the float32 tolerance
+                ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(2.0**-126))) - 7)
+                ok = ok and bool((diff <= tol * b.abs().max() + ulp).all())
+            else:
+                ok = ok and rel <= tol
+        ok = ok and int(gpu["count"]) == int(cpu["count"]) == 2
+        print(f"train step, card vs CPU ({label}, 2 steps, small net, 4x32x64, no TF32): "
+              "relative max|err| (tolerance) " + ", ".join(report))
+        if not ok:
+            raise AssertionError(f"the train step on the card ({label}) disagrees with the CPU")
 
 
 def eval_check(seed: int) -> None:
@@ -563,7 +667,10 @@ def eval_check(seed: int) -> None:
 def solver_phase(seed: int) -> None:
     """A 6-frame exact-reprojection problem with corrupted per-frame depth
     scales (the shape of bench.py::make_clip_problem), solved on the card
-    and on the CPU."""
+    and on the CPU; then a cold solve on the card with the exact diagonal
+    off and 4 Hutchinson probes an outer step (lm_precond_probes, at most
+    10 LM steps a solve), every LM solve of which must end below its
+    start."""
     import torch
 
     from robust_cvd_tpu_torch.config import PoseOptParams
@@ -589,7 +696,7 @@ def solver_phase(seed: int) -> None:
     scale = rng.uniform(0.7, 1.4, n).astype(np.float32)
     opt = dataclasses.replace(PoseOptParams(), num_steps=2, ctf_long=3, ctf_short=2)
 
-    def solve(device):
+    def solve(device, opt=opt, log=None):
         data = residuals.ConstraintData(
             pair=torch.from_numpy(pairs), loc0=torch.from_numpy(loc0),
             loc1=torch.from_numpy(p1[..., :2].copy()),
@@ -602,13 +709,25 @@ def solver_phase(seed: int) -> None:
             median_depth=torch.from_numpy(2.5 / scale).to(device),
             aspect=16 / 9, num_frames=n,
         )
-        return pose_opt.run(opt, inputs).pose.cpu()
+        return pose_opt.run(opt, inputs, log=log).pose.cpu()
 
     gpu, cpu = solve("cuda"), solve("cpu")
     err = (gpu - cpu).abs().max().item()
     print(f"solver: 6-frame cold solve, card vs CPU poses max|err| {err:.3e} (tolerance 1e-3)")
     if not err <= 1e-3:
         raise AssertionError("the solver on the card disagrees with the CPU")
+    log = []
+    # at most 10 LM steps a solve: with the default 50 it ran to the cap
+    probed = solve("cuda", dataclasses.replace(opt, lm_precond_exact=False,
+                                               lm_precond_probes=4, lm_max_outer=10), log)
+    for e in log:
+        print("solve with probes " + json.dumps(e))
+    if not (log and all(e["cost"] < e["cost0"] for e in log)
+            and torch.isfinite(probed).all()):
+        raise AssertionError("the cold solve with Hutchinson probes did not end below its start")
+    print(f"solver: 6-frame cold solve with 4 Hutchinson probes on the card, {len(log)} LM "
+          f"solves below their start; poses within {(probed - gpu).abs().max().item():.3e} "
+          f"of the exact-diagonal solve's")
 
 
 def panning_frames(n: int, seed: int, shift: int = SHIFT) -> np.ndarray:
@@ -968,6 +1087,221 @@ def colmap_phase(base: str, net, seed: int, device: str = "cuda") -> int:
         raise AssertionError("recon=colmap: non-finite output or the depth did not move")
     if launches != want or int(tuner.optimizer.count) != steps or steps == 0:
         raise AssertionError(f"recon=colmap: adam launches {launches} for {steps} steps")
+    return launches
+
+
+def optimizer_epochs_phase(tuner, device: str = "cuda") -> dict:
+    """One fine-tune epoch (FineTuner.run) with optax.radam and one with a
+    bf16 Adam first moment, on the fine-tune phase's clip, net and solved
+    poses. The poses are held fixed (recon=colmap with the phase's pose
+    state), so no solve runs and the epoch is all train steps. Checks one
+    launch of the kernel's mode a step, no skipped step, finite losses and
+    moved parameters. Returns the launches by kernels-line name."""
+    import torch
+
+    from robust_cvd_tpu_torch.ops import adam
+    from robust_cvd_tpu_torch.training.fine_tune import FineTuner
+
+    launches = {}
+    for label, options, mode in OPTIMIZERS[1:]:
+        cfg = dataclasses.replace(tuner.cfg, recon="colmap", ft=dataclasses.replace(
+            tuner.cfg.ft, num_epochs=1, val_epoch_freq=-1, save_checkpoints=False,
+            save_tensorboard=False, **options))
+        run = FineTuner(cfg, tuner.adapter, tuner.clip, tuner.pose_inputs,
+                        pose_state_override=tuner.pose_state, device=device)
+        adam.adam_update.launches_by_mode[mode] = 0
+        t0 = time.perf_counter()
+        run.run(1)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        count = adam.adam_update.launches_by_mode[mode]
+        h = run.history[0]
+        moved = (run.optimizer.flat - run.optimizer.init).abs().max().item()
+        print(f"optimizer {label}: 1 epoch, {h['steps']} steps, {h['skipped']} skipped, loss "
+              f"{h['loss']:.6f}, {count} Adam launches in mode {mode}, mu {run.optimizer.mu.dtype}, "
+              f"parameters moved by up to {moved:.3e}, {dt:.3f} s")
+        want = h["steps"] if device == "cuda" else 0
+        if count != want or h["skipped"] or not np.isfinite(h["loss"]) or not moved > 0:
+            raise AssertionError(f"the {label} epoch: {count} launches for {h['steps']} steps, "
+                                 f"{h['skipped']} skipped, loss {h['loss']}")
+        launches["adam_" + label] = count
+        del run
+    return launches
+
+
+# The processor phase's filter ops: (output stream, ProcessorParams fields)
+PROCESSOR_FILTERS = (
+    ("proc_bilateral", dict(op="BILATERAL_FILTER", spatial_radius=1, frame_radius=1,
+                            color_sigma=0.2)),
+    ("proc_fgf_mean", dict(op="FLOW_GUIDED_FILTER", frame_radius=2)),
+    ("proc_fgf_median", dict(op="FLOW_GUIDED_FILTER", frame_radius=2, median=True)),
+    ("proc_fgf_far", dict(op="FLOW_GUIDED_FILTER", frame_radius=2, far_connections=True)),
+)
+PROCESSOR_CPU_FRAMES = 16  # the first frames of the clip, filtered on both devices
+PROCESSOR_SOLVER_FRAMES = 8  # the solver ops' clip, at full width
+# The solver ops' schedule, cut from the default 4 coarse-to-fine steps of up
+# to 50 LM steps: their solves are host-bound (about 45 ms a CG iteration on
+# the 8-frame clip), and the default schedule took 133 s there on the H100.
+PROCESSOR_SOLVER_OPTIONS = dict(num_steps=2, lm_max_outer=6)
+FILTER_TOL = 1e-5  # card vs CPU filters, relative to the largest depth
+
+
+def processor_phase(base: str, solver_params, seed: int, device: str = "cuda",
+                    solver_options=PROCESSOR_SOLVER_OPTIONS) -> int:
+    """All 13 ops of pipeline/processor.py through Processor.process on the
+    pose phase's store (exact constant-shift flows, so tracked locations
+    stay on integers), with the fine-tune phase's cameras (`solver_params`;
+    None: the default cameras):
+    - copy, clip and the filters (bilateral with colour, flow-guided in
+      mean, median and far-connections modes) on the whole clip: finite
+      output that moved; then each filter on the clip's first
+      PROCESSOR_CPU_FRAMES frames on the card and on the CPU, within
+      FILTER_TOL of the largest depth;
+    - compute_tracks: one corner-kernel launch, and every kept track moves
+      SHIFT px a frame (within 0.5 px);
+    - the constraint and solver ops on a PROCESSOR_SOLVER_FRAMES-frame clip
+      at full width (make_clip's, with the pose clip's initial depth):
+      compute_constraints, normalize_depth, optimize_poses,
+      grid_xform_split, the resets and reset_normalize_optimize; every LM
+      solve ends below its start (PoseOptParams with `solver_options`:
+      PROCESSOR_SOLVER_OPTIONS says why the schedule is cut).
+    Returns the corner kernel's launches (compute_tracks and the solver
+    clip's constraints)."""
+    import torch
+
+    from robust_cvd_tpu_torch.camera import pose_params_to_camera
+    from robust_cvd_tpu_torch.config import PoseOptParams
+    from robust_cvd_tpu_torch.io.store import VideoStore
+    from robust_cvd_tpu_torch.ops import corner
+    from robust_cvd_tpu_torch.pipeline.processor import Op, Processor, ProcessorParams
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    solver_opt = PoseOptParams(**solver_options)
+
+    def params(**kw):
+        kw["op"] = Op[kw["op"]]
+        return ProcessorParams(pose_optimizer=solver_opt, **kw)
+
+    src = "depth_midas2"
+    store = VideoStore.open(base)
+    n = store.num_frames
+    if solver_params is not None:  # else the Processor's default cameras
+        store.camera = pose_params_to_camera(solver_params.pose, solver_params.focal,
+                                             store.aspect)
+    proc = Processor(store, device=device)
+    depth = store.load_depth_stream(src)
+    launches = 0
+
+    def run(label, p, on=None):
+        t0 = time.perf_counter()
+        out = (on or proc).process(p)
+        sync()
+        print(f"processor {label}: {time.perf_counter() - t0:.3f} s")
+        return out
+
+    run("copy", params(op="COPY", source_depth_stream=src, depth_stream="proc_copy"))
+    if not np.array_equal(VideoStore.open(base).load_depth_stream("proc_copy"), depth):
+        raise AssertionError("the copy op changed the depth")
+    cap = float(np.median(depth))
+    run("clip_max_depth", params(op="CLIP_MAX_DEPTH", source_depth_stream=src,
+                                 depth_stream="proc_clip", max_depth=cap))
+    clipped = store.load_depth_stream("proc_clip")
+    if not (clipped.max() <= cap and np.array_equal(clipped, np.minimum(depth, cap))):
+        raise AssertionError("the clip op is not min(depth, max_depth)")
+    for stream, kw in PROCESSOR_FILTERS:
+        run(stream, params(source_depth_stream=src, depth_stream=stream, **kw))
+        out = store.load_depth_stream(stream)
+        moved = float(np.abs(out - depth).max())
+        print(f"processor {stream}: {out.shape}, depth {out.min():.4f}..{out.max():.4f}, moved "
+              f"by up to {moved:.4f}")
+        if out.shape != depth.shape or not np.isfinite(out).all() or not moved > 0:
+            raise AssertionError(f"the {stream} filter gave non-finite or unchanged depth")
+
+    # the same filters on the first frames, card and CPU
+    m = min(PROCESSOR_CPU_FRAMES, n)
+    outs = {}
+    for dev in (device, "cpu"):
+        view = first_frames(store, m)
+        vproc = Processor(view, device=dev)
+        for stream, kw in PROCESSOR_FILTERS:
+            name = f"cmp_{dev}_{stream}"
+            vproc.process(params(source_depth_stream=src, depth_stream=name, **kw))
+            outs[dev, stream] = view.load_depth_stream(name)
+    worst = 0.0
+    for stream, _ in PROCESSOR_FILTERS:
+        a, b = outs[device, stream], outs["cpu", stream]
+        err = float(np.abs(a - b).max() / np.abs(b).max())
+        worst = max(worst, err)
+        print(f"processor {stream}, card vs CPU on {m} frames: relative max|err| {err:.3e} "
+              f"(tolerance {FILTER_TOL:g})")
+    if not worst <= FILTER_TOL:
+        raise AssertionError("a filter op on the card disagrees with the CPU")
+
+    corner.corner_min_eigenval.launches = 0
+    tracks = run("compute_tracks", params(op="COMPUTE_TRACKS"))
+    launches += corner.corner_min_eigenval.launches
+    want = 1 if device == "cuda" else 0
+    h, w = depth.shape[1:]
+    steps = [(x1 - x0) * w for t in tracks.tracks.values()
+             for (x0, _), (x1, _) in zip(t.locs, t.locs[1:])]
+    dys = [(y1 - y0) / store.inv_aspect * h for t in tracks.tracks.values()
+           for (_, y0), (_, y1) in zip(t.locs, t.locs[1:])]
+    worst_dx = max((abs(d + SHIFT) for d in steps), default=float("inf"))
+    worst_dy = max((abs(d) for d in dys), default=float("inf"))
+    lengths = [t.length for t in tracks.tracks.values()]
+    print(f"processor compute_tracks: {len(lengths)} tracks, lengths {min(lengths, default=0)}"
+          f"..{max(lengths, default=0)} (mean {np.mean(lengths) if lengths else 0:.1f}), "
+          f"{len(steps)} steps, worst |dx + {SHIFT}| {worst_dx:.4f} px, worst |dy| "
+          f"{worst_dy:.4f} px (tolerance 0.5), corner launches {launches}")
+    if launches != want or not lengths or worst_dx > 0.5 or worst_dy > 0.5:
+        raise AssertionError("compute_tracks: wrong corner launches or a track off the pan")
+
+    # the constraint and solver ops on a few frames at full width
+    sbase = os.path.join(base, "solver_ops")
+    k = min(PROCESSOR_SOLVER_FRAMES, n)
+    make_clip(sbase, k, seed)
+    small = VideoStore.open(sbase)
+    small.save_depth_stream(src, depth[:k])
+    sproc = Processor(small, device=device)
+    corner.corner_min_eigenval.launches = 0
+    pose = run("compute_constraints", params(op="COMPUTE_CONSTRAINTS", source_depth_stream=src),
+               sproc)
+    launches += corner.corner_min_eigenval.launches
+    n_pair = sum(len(pose.pairs[key].loc0) for key in pose.pair_keys)
+    print(f"processor compute_constraints: {len(pose.pair_keys)} pairs, {n_pair} constraints "
+          f"on the {k}-frame clip")
+    if n_pair == 0:
+        raise AssertionError("compute_constraints built no constraints")
+    sp = None
+    for op in ("NORMALIZE_DEPTH", "OPTIMIZE_POSES"):
+        sp = run(op.lower(), params(op=op, source_depth_stream=src), sproc)
+    gz, gy, gx = sp.depth_grid.shape[1:]
+    sp = run("grid_xform_split", params(op="GRID_XFORM_SPLIT", grid_size=(2 * gx, 2 * gy)),
+             sproc)
+    if sp.depth_grid.shape[1:] != (gz, 2 * gy, 2 * gx):
+        raise AssertionError(f"grid_xform_split gave {tuple(sp.depth_grid.shape)}")
+    sp = run("reset_depth_xforms", params(op="RESET_DEPTH_XFORMS"), sproc)
+    if sp.depth_grid.shape[1:] != (1, 1, 1) or not bool((sp.depth_grid == 1).all()):
+        raise AssertionError("reset_depth_xforms did not reset the depth transforms")
+    sp = run("reset_spatial_xforms", params(op="RESET_SPATIAL_XFORMS"), sproc)
+    if sp.spatial_grid.shape[1:3] != (1, 1) or bool(sp.spatial_grid.abs().max() > 0):
+        raise AssertionError("reset_spatial_xforms did not reset the spatial transforms")
+    run("reset_poses", params(op="RESET_POSES"), sproc)
+    if bool(small.camera.position.abs().max() > 0):
+        raise AssertionError("reset_poses left a camera off the origin")
+    sp = run("reset_normalize_optimize", params(op="RESET_NORMALIZE_OPTIMIZE",
+                                                source_depth_stream=src), sproc)
+    for e in sproc.solve_log:
+        print("processor solve " + json.dumps(e))
+    finite = all(bool(torch.isfinite(t).all()) for t in sp if t is not None)
+    if not (sproc.solve_log and finite
+            and all(e["cost"] < e["cost0"] for e in sproc.solve_log)):
+        raise AssertionError("a solver op did not lower its cost, or non-finite parameters")
+    print(f"processor solver ops: {len(sproc.solve_log)} LM solves, each below its start")
     return launches
 
 
@@ -1407,17 +1741,22 @@ PIPELINE_SPANS = ("extract_frames", "downscale_frames", "load_models", "compute_
                   "compute_flow/load_s", "compute_flow/chunk_s", "compute_flow/write_s",
                   "compute_flow_masks", "compute_dynamic_mask", "fine_tune",
                   "fine_tune/setup_s", "fine_tune/pose_opt_s", "fine_tune/train_steps_s",
-                  "fine_tune/refresh_s", "fine_tune/persist_io_s")
+                  "fine_tune/refresh_s", "fine_tune/persist_io_s", "fine_tune/post_filter_s")
+POST_FILTER_CPU_FRAMES = 8  # the filtered frames checked against the CPU
+POST_FILTER_TOL = 1e-4  # their disparity, card vs CPU, relative
 
 
 def pipeline_phase(base: str, n_frames: int, seed: int, epochs: int, device: str = "cuda",
                    argv=()):
-    """The whole pipeline through the CLI, `main(["--path", clip])` with every
-    default but --num_epochs (and `argv`, which cuts the solver for a CPU
-    run), on a clip of color_full PNGs, with the checkpoints of
-    pipeline_checkpoints. Checks the result tree, the flows against the
-    true shift, the kernels' launches on this path and the solves. Returns
-    the corner and Adam kernels' launches and the DatasetProcessor."""
+    """The whole pipeline through the CLI, `main(["--path", clip,
+    "--post_filter", "true"])` with every other default but --num_epochs
+    (and `argv`, which cuts the solver for a CPU run), on a clip of
+    color_full PNGs, with the checkpoints of pipeline_checkpoints. Checks
+    the result tree, the flows against the true shift, the kernels'
+    launches on this path, the solves and the post filter's stream (see
+    post_filter_check). pipeline_s_per_frame leaves the post filter out, as
+    the runs before it had none. Returns the corner and Adam kernels'
+    launches and the DatasetProcessor."""
     import torch
 
     from robust_cvd_tpu_torch.io import raw
@@ -1435,15 +1774,19 @@ def pipeline_phase(base: str, n_frames: int, seed: int, epochs: int, device: str
     corner.corner_min_eigenval.launches = 0
     adam.adam_update.launches = 0
     t0 = time.perf_counter()
-    proc = cli_main(["--path", base, "--num_epochs", str(epochs), *argv], device=device)
+    proc = cli_main(["--path", base, "--num_epochs", str(epochs), "--post_filter", "true",
+                     *argv], device=device)
     if device == "cuda":
         torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = {"corner": corner.corner_min_eigenval.launches, "adam": adam.adam_update.launches}
     for name, sec in proc.tracer.summary().items():
         print(f"pipeline stage {name} {sec:.3f}")
+    post = proc.tuner.stats["post_filter_s"]
     print(f"pipeline_s {total:.3f}")
-    print(f"pipeline_s_per_frame {total / n_frames:.4f}")
+    print(f"post_filter_s {post:.3f}")
+    print(f"pipeline_s_per_frame {(total - post) / n_frames:.4f}")
+    print(f"pipeline_s_per_frame_with_post_filter {total / n_frames:.4f}")
 
     def count(sub, ext):
         d = os.path.join(base, sub)
@@ -1495,8 +1838,9 @@ def pipeline_phase(base: str, n_frames: int, seed: int, epochs: int, device: str
 
     tuner = proc.tuner
     streams = [s.name for s in load_video_dat(os.path.join(base, "video.dat")).depth_streams]
-    if streams[:1] != ["depth_midas2"] or "fine_tuned" not in streams:
+    if streams[:1] != ["depth_midas2"] or streams[-2:] != ["fine_tuned", "fine_tuned_filtered"]:
         raise AssertionError(f"video.dat streams {streams}")
+    post_filter_check(tuner, n_frames)
     depth_dir = os.path.join(tuner.out_dir, "depth")
     disp = [raw.load_raw_float32_image(os.path.join(depth_dir, f))
             for f in sorted(os.listdir(depth_dir)) if f.endswith(".raw")]
@@ -1534,6 +1878,99 @@ def pipeline_phase(base: str, n_frames: int, seed: int, epochs: int, device: str
     return launches, proc
 
 
+def first_frames(store, m: int):
+    """A store over the first m frames of `store`'s folder, with the first m
+    of its cameras on the host (its reads of frames past m never happen)."""
+    from robust_cvd_tpu_torch.camera import CameraState
+    from robust_cvd_tpu_torch.io.store import VideoStore
+
+    view = VideoStore(store.base_dir, dataclasses.replace(store.meta, pts=store.meta.pts[:m]))
+    if store.camera is not None:
+        view.camera = CameraState(*[t[:m].cpu() for t in store.camera])
+    return view
+
+
+def post_filter_check(tuner, n_frames: int) -> None:
+    """The post filter's stream: n_frames finite, positive disparity frames;
+    the first POST_FILTER_CPU_FRAMES of them equal the same filter on the
+    CPU (the fine-tuned stream's depth and the cameras of the first
+    POST_FILTER_CPU_FRAMES + filter_radius frames, all a chain from those
+    frames reaches) within POST_FILTER_TOL relative."""
+    from robust_cvd_tpu_torch.pipeline.processor import Op, Processor, ProcessorParams
+
+    pose = tuner.pose
+    src, dst = pose.streams[-2], pose.streams[-1]
+    filtered = pose._load_stream_depth(dst)
+    if filtered.shape[0] != n_frames or not (np.isfinite(filtered).all() and (filtered > 0).all()):
+        raise AssertionError(f"post filter: {filtered.shape[0]} frames, or non-finite or "
+                             f"non-positive depth")
+    radius = tuner.cfg.filter_radius
+    k = min(POST_FILTER_CPU_FRAMES, n_frames)
+    m = min(k + radius, n_frames)
+    cpu = Processor(first_frames(pose.store, m), device="cpu").flow_guided_filter_array(
+        pose._load_stream_depth(src)[:m],
+        ProcessorParams(op=Op.FLOW_GUIDED_FILTER, frame_radius=radius),
+    ).numpy()[:k]
+    a, b = 1.0 / filtered[:k], 1.0 / cpu
+    err = float(np.abs(a - b).max() / np.abs(b).max())
+    moved = float(np.abs(filtered - pose._load_stream_depth(src)).max())
+    print(f"post filter: stream {dst.name}, {n_frames} finite positive frames, depth moved by up "
+          f"to {moved:.4f}; the first {k} frames vs the CPU's filter of the first {m}: relative "
+          f"max|err| {err:.3e} in disparity (tolerance {POST_FILTER_TOL:g})")
+    if not err <= POST_FILTER_TOL:
+        raise AssertionError("the post filter on the card disagrees with the CPU")
+
+
+def post_filter_profile(proc) -> dict:
+    """The pipeline's post filter again, at full width, on its inputs:
+    seconds of the whole call (host included), the device time of
+    filters.flow_guided_filter between one event pair, the peak device
+    memory above what was allocated before, and its bytes bounds: each
+    input read once and the output written once (depth, world points,
+    both flow stacks, both mask stacks, output: 38 B a pixel), and the
+    reads of every chain step (a flow, a mask and a world point, 21 B a
+    pixel and step, 2 * radius steps, plus the pixel's own world point,
+    depth and output)."""
+    import torch
+
+    from robust_cvd_tpu_torch.ops import filters
+    from robust_cvd_tpu_torch.pipeline.processor import Op, Processor, ProcessorParams
+
+    tuner = proc.tuner
+    pose = tuner.pose
+    radius = tuner.cfg.filter_radius
+    depth = pose._load_stream_depth(pose.streams[-2])
+    fp = Processor(pose.store, device="cuda")
+    p = ProcessorParams(op=Op.FLOW_GUIDED_FILTER, frame_radius=radius)
+    fp.flow_guided_filter_array(depth, p)  # warm-up
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    args, kwargs = fp.flow_guided_filter_inputs(depth, p)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    filters.flow_guided_filter(*args, **kwargs)
+    end.record()
+    end.synchronize()
+    call_s = time.perf_counter() - t0
+    device_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() - before
+    pixels = float(depth.size)
+    once_ms = 38 * pixels / PEAK_BYTES_PER_S * 1e3
+    steps_ms = (42 * radius + 20) * pixels / PEAK_BYTES_PER_S * 1e3
+    result = {"pipeline_post_filter_s": tuner.stats["post_filter_s"], "call_s": call_s,
+              "device_ms": device_ms, "peak_bytes": peak, "bound_once_ms": once_ms,
+              "bound_steps_ms": steps_ms, "shape": list(depth.shape), "radius": radius}
+    print(f"post filter profile {tuple(depth.shape)}, radius {radius}: in the pipeline "
+          f"{result['pipeline_post_filter_s']:.3f} s (stream copy, loads, filter, writes); one "
+          f"flow_guided_filter_array call {call_s:.3f} s; filters.flow_guided_filter "
+          f"{device_ms:.3f} ms on the card; peak device memory {peak / 2**30:.3f} GiB above "
+          f"the {before / 2**30:.3f} GiB held before; bytes bound {once_ms:.4f} ms (each input "
+          f"once), {steps_ms:.4f} ms (every chain step's reads)")
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=100,
@@ -1557,20 +1994,22 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     print(f"frames: {args.frames}" + (" (the bench clip length)" if args.frames == 100 else " (cut)"))
     print(f"epochs: {args.epochs}" + (" (the default)" if args.epochs == 10 else " (cut from 10)"))
+    pose_frames = min(args.frames, POSE_CLIP_FRAMES)
+    print(f"pose clip frames: {pose_frames}")
     build_kernels()
     corner_k = corner_phase(args.frames, args.seed)
     from robust_cvd_tpu_torch.models.midas import MidasNet
 
     with torch.device("meta"):
         n_params = sum(p.numel() for p in MidasNet().parameters())
-    adam_k = adam_phase(n_params, args.seed)
+    adam_entries = {e["name"]: e for e in adam_phase(n_params, args.seed)}
     solver_phase(args.seed)
     step_phase(args.seed)
     eval_check(args.seed)
     raft_device_check(args.seed)
     launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_clip_") as base:
-        launches["pose"], depth, net = path_phase(base, args.frames, args.seed)
+        launches["pose"], depth, net = path_phase(base, pose_frames, args.seed)
         if launches["pose"] < 1:
             raise AssertionError("the corner kernel was not launched on the pose path")
         tuner, adam_fine_tune = finetune_phase(base, depth, net, args.seed,
@@ -1579,6 +2018,8 @@ def main() -> int:
             raise AssertionError("the Adam kernel was not launched on the fine-tune path")
         profile_phase(tuner)
         validate_phase(tuner)
+        launches["processor"] = processor_phase(base, tuner.solver_params, args.seed)
+        adam_modes = optimizer_epochs_phase(tuner)
         del tuner
         torch.cuda.empty_cache()
         adam_colmap = colmap_phase(base, net, args.seed)
@@ -1596,16 +2037,24 @@ def main() -> int:
     del stage
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_") as base:
-        pipe, _ = pipeline_phase(os.path.join(base, "clip"), args.frames, args.seed,
-                                 args.epochs)
+        pipe, proc = pipeline_phase(os.path.join(base, "clip"), args.frames, args.seed,
+                                    args.epochs)
+        post_filter_profile(proc)
+        del proc
     launches["pipeline"] = pipe["corner"]
     corner_k["launches"] = sum(launches.values())
     corner_k["launches_by_path"] = launches
+    adam_k = adam_entries["adam"]
     adam_k["launches_by_path"] = {"fine_tune": adam_fine_tune, "colmap": adam_colmap,
                                   "pipeline": pipe["adam"]}
     adam_k["launches"] = adam_fine_tune + adam_colmap + pipe["adam"]
+    for name, count in adam_modes.items():
+        if count < 1:
+            raise AssertionError(f"the Adam kernel's {name} mode was not launched on its path")
+        adam_entries[name]["launches"] = count
+        adam_entries[name]["launches_by_path"] = {"fine_tune_epoch": count}
     print(f"total_s {time.perf_counter() - t_start:.3f}")
-    print(json.dumps({"kernels": [corner_k, adam_k]}))
+    print(json.dumps({"kernels": [corner_k] + list(adam_entries.values())}))
     print(smi)
     print(json.dumps({
         "ok": True,

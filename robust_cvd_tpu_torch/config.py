@@ -98,8 +98,9 @@ class PoseOptParams:
     # CG cap, used with the pose-block-Jacobi preconditioner below
     lm_cg_iters: int = 16
     lm_rtol: float = 1e-6
-    # Hutchinson probes for a diag(J^T J) estimate; 0 = off. The port
-    # raises on a positive value (solver/lm.py).
+    # Hutchinson probes per outer step for a diag(J^T J) estimate where the
+    # exact diagonal is off (warm re-solves, or lm_precond_exact false);
+    # 0 = plain CG there (solver/lm.py)
     lm_precond_probes: int = 0
     # exact diag(J^T J) Jacobi preconditioning of cold solves
     # (solver/residuals.py build_diag_fn); warm re-solves turn it off

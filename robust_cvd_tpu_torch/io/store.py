@@ -227,6 +227,10 @@ class VideoStore:
             raw.save_raw_float32_image(pjoin(d, frame_name(i, ".raw")), disparity[i])
         self.depth_streams[stream] = np.asarray(depth)
 
+    def duplicate_depth_stream(self, src: str, dst: str) -> None:
+        """(reference pose_optimization.py:262-290)."""
+        self.save_depth_stream(dst, self.load_depth_stream(src))
+
     # -- flow ----------------------------------------------------------------
 
     def flow_pairs(self) -> List[Tuple[int, int]]:

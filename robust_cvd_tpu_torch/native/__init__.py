@@ -56,6 +56,8 @@ def _load() -> ctypes.CDLL:
         i32p, i32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, u8p,
     ]
     lib.stamp_disks.restype = None
+    lib.greedy_sample.argtypes = list(lib.stamp_disks.argtypes)
+    lib.greedy_sample.restype = None
     _lib = lib
     return lib
 
@@ -123,6 +125,22 @@ def build_triplet_candidates(corner, flow10, mask10, flow12, mask12, radius: int
         _ptr(out_f2, ctypes.c_float), cap,
     )
     return out_xy[:n], out_f0[:n], out_f2[:n]
+
+
+def greedy_sample(xs: np.ndarray, ys: np.ndarray, w: int, h: int, radius: int) -> np.ndarray:
+    """Greedy disk suppression over candidates in priority order: bool (n,)
+    of the kept ones; a candidate within `radius` of a kept one, or out of
+    bounds, is dropped (reference lib/FlowConstraints.cpp:352-397)."""
+    xs = np.ascontiguousarray(xs, np.int32)
+    ys = np.ascontiguousarray(ys, np.int32)
+    if xs.shape != ys.shape or xs.ndim != 1:
+        raise ValueError(f"xs {xs.shape} and ys {ys.shape} must be one equal-length vector")
+    out = np.zeros(xs.shape[0], np.uint8)
+    _load().greedy_sample(
+        _ptr(xs, ctypes.c_int32), _ptr(ys, ctypes.c_int32), xs.shape[0], w, h, radius,
+        _ptr(out, ctypes.c_uint8),
+    )
+    return out.astype(bool)
 
 
 def stamp_disks(xs: np.ndarray, ys: np.ndarray, w: int, h: int, radius: int) -> np.ndarray:

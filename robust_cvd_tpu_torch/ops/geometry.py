@@ -13,8 +13,12 @@ Precision.HIGHEST); no matrix product, and so no TF32, is involved.
 `grid_sample` is the one bilinear sampler of the loss stack. Its
 data-gradient is autograd of the gather (a 4-tap scatter-add). The JAX
 package's segsum/matmul/mxu variants are TPU lowerings of the same
-function and are not ported; neither are the non-perspective projections
-(ROADMAP.md).
+function and are not ported.
+
+The non-perspective projections (equirectangular and cylindrical crops,
+dispatched on video.dat's projection code) follow the JAX package: depth
+is the radial distance along the viewing ray there, the planar -z for
+perspective.
 """
 
 from __future__ import annotations
@@ -145,3 +149,108 @@ def intrinsics_px(vfov: torch.Tensor, hfov: torch.Tensor, shape) -> torch.Tensor
     cx = torch.full_like(fx, (w - 1) / 2.0)
     cy = torch.full_like(fy, (h - 1) / 2.0)
     return torch.stack([fx, fy, cx, cy], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Non-perspective projections (robust_cvd_tpu/ops/geometry.py:350-463).
+#
+# The reference's DepthPhoto names Equirectangular and Cylindrical in its
+# Intrinsics enum and documents the lat-lon crop (lib/DepthPhoto.h:62-92:
+# angular extents from vFov/hFov, centred at centerLat/centerLon). Camera
+# looks down -z, +y up, +x right; longitude is positive toward +x, latitude
+# toward +y; lon = lat = 0 is the forward axis. Angles may be Python floats
+# or tensors.
+# ---------------------------------------------------------------------------
+
+
+def _angle(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+
+
+def _latlon_to_dir(lon: torch.Tensor, lat: torch.Tensor) -> torch.Tensor:
+    """(lon, lat) angles -> unit direction; (0, 0) -> (0, 0, -1)."""
+    cl = torch.cos(lat)
+    return torch.stack([cl * torch.sin(lon), torch.sin(lat), -cl * torch.cos(lon)], dim=-1)
+
+
+def pixels_to_points_equirect(
+    pixels: torch.Tensor, dist: torch.Tensor, shape, vfov, hfov,
+    center_lat=0.0, center_lon=0.0,
+) -> torch.Tensor:
+    """Equirectangular crop: pixel x and y linear in lon and lat across hFov
+    and vFov, centred at (centerLon, centerLat); `dist` is radial."""
+    h, w = shape
+    lon = _angle(center_lon, pixels) + (pixels[..., 0] - (w - 1) / 2.0) * (_angle(hfov, pixels) / w)
+    lat = _angle(center_lat, pixels) - (pixels[..., 1] - (h - 1) / 2.0) * (_angle(vfov, pixels) / h)
+    return _latlon_to_dir(lon, lat) * dist[..., None]
+
+
+def project_equirect(points: torch.Tensor, shape, vfov, hfov,
+                     center_lat=0.0, center_lon=0.0) -> torch.Tensor:
+    """Camera-space points -> equirectangular pixel (x, y); the inverse of
+    `pixels_to_points_equirect` up to the radial distance."""
+    h, w = shape
+    lon = torch.atan2(points[..., 0], -points[..., 2])
+    lat = torch.atan2(points[..., 1], torch.hypot(points[..., 0], points[..., 2]))
+    x = (lon - _angle(center_lon, points)) * (w / _angle(hfov, points)) + (w - 1) / 2.0
+    y = (_angle(center_lat, points) - lat) * (h / _angle(vfov, points)) + (h - 1) / 2.0
+    return torch.stack([x, y], dim=-1)
+
+
+def pixels_to_points_cylindrical(
+    pixels: torch.Tensor, dist: torch.Tensor, shape, vfov, hfov,
+    center_lat=0.0, center_lon=0.0,
+) -> torch.Tensor:
+    """Cylindrical crop: x linear in lon; y linear in height on the unit
+    cylinder (spanning 2 tan(vFov/2), offset tan(centerLat)); `dist` is
+    radial along the normalized viewing ray."""
+    h, w = shape
+    lon = _angle(center_lon, pixels) + (pixels[..., 0] - (w - 1) / 2.0) * (_angle(hfov, pixels) / w)
+    height = torch.tan(_angle(center_lat, pixels)) - (pixels[..., 1] - (h - 1) / 2.0) * (
+        2.0 * torch.tan(_angle(vfov, pixels) / 2.0) / h
+    )
+    d = torch.stack([torch.sin(lon), height, -torch.cos(lon)], dim=-1)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    return d * dist[..., None]
+
+
+def project_cylindrical(points: torch.Tensor, shape, vfov, hfov,
+                        center_lat=0.0, center_lon=0.0) -> torch.Tensor:
+    """Camera-space points -> cylindrical pixel (x, y)."""
+    h, w = shape
+    lon = torch.atan2(points[..., 0], -points[..., 2])
+    height = points[..., 1] / torch.hypot(points[..., 0], points[..., 2])
+    x = (lon - _angle(center_lon, points)) * (w / _angle(hfov, points)) + (w - 1) / 2.0
+    y = (torch.tan(_angle(center_lat, points)) - height) * (
+        h / (2.0 * torch.tan(_angle(vfov, points) / 2.0))
+    ) + (h - 1) / 2.0
+    return torch.stack([x, y], dim=-1)
+
+
+# io.video_dat.FrameIntrinsics.projection codes (reference
+# lib/DepthPhoto.h:68-73 enum order)
+PROJECTION_PERSPECTIVE = 0
+PROJECTION_EQUIRECTANGULAR = 1
+PROJECTION_CYLINDRICAL = 2
+
+
+def pixels_to_points_proj(projection: int, pixels, depth, shape, vfov, hfov,
+                          center_lat=0.0, center_lon=0.0) -> torch.Tensor:
+    """Unprojection by projection code; depth is planar -z for perspective
+    and radial otherwise."""
+    if projection == PROJECTION_EQUIRECTANGULAR:
+        return pixels_to_points_equirect(pixels, depth, shape, vfov, hfov, center_lat, center_lon)
+    if projection == PROJECTION_CYLINDRICAL:
+        return pixels_to_points_cylindrical(pixels, depth, shape, vfov, hfov, center_lat, center_lon)
+    intr = intrinsics_px(_angle(vfov, pixels), _angle(hfov, pixels), shape)
+    return pixels_to_points(intr, depth, pixels)
+
+
+def project_proj(projection: int, points, shape, vfov, hfov,
+                 center_lat=0.0, center_lon=0.0) -> torch.Tensor:
+    """Camera-space points -> pixels by projection code."""
+    if projection == PROJECTION_EQUIRECTANGULAR:
+        return project_equirect(points, shape, vfov, hfov, center_lat, center_lon)
+    if projection == PROJECTION_CYLINDRICAL:
+        return project_cylindrical(points, shape, vfov, hfov, center_lat, center_lon)
+    return project(points, intrinsics_px(_angle(vfov, points), _angle(hfov, points), shape))

@@ -10,11 +10,9 @@ from a RANSAC fundamental matrix per pair ("Ransac", ops/epipolar.py).
 A `depth_gt/` directory (with an optional `poses.txt`) and a COLMAP
 reconstruction (`colmap_dense/metadata.npz` with `depth_colmap_dense/`)
 are imported as extra depth streams ahead of the estimated one
-(io/importers.py); their cameras seed `optimize_poses`.
-
-Not ported yet, and raising NotImplementedError rather than doing nothing:
-`filter_depth` (the slice that ports the remaining processors;
-ROADMAP.md).
+(io/importers.py); their cameras seed `optimize_poses`. `filter_depth`
+(the post filter) runs the flow-guided filter of pipeline/processor.py on
+the newest stream.
 """
 
 from __future__ import annotations
@@ -152,10 +150,35 @@ class PoseOptimizer:
         self.save()
         return dst
 
-    def filter_depth(self, radius: int):
-        raise NotImplementedError(
-            "the flow-guided depth filter is not ported yet (processor slice)"
-        )
+    def filter_depth(self, radius: int) -> DepthStreamRef:
+        """Flow-guided spatio-temporal filter of the newest stream into a
+        `<last>_filtered` stream, on this optimizer's device, then save
+        (reference pose_optimization.py:292-326: Copy op + FlowGuidedFilter
+        op + saveDepth + save)."""
+        from ..io import raw
+        from .processor import Op, Processor, ProcessorParams
+
+        src = self.streams[-1]
+        name = src.name + "_filtered"
+        dst = self.duplicate_last_depth_stream(name, pjoin(src.dir, name))
+
+        depth = self._load_stream_depth(dst)
+        if self.store.camera is None and self.solver_params is not None:
+            from ..camera import pose_params_to_camera
+
+            self.store.camera = pose_params_to_camera(
+                self.solver_params.pose, self.solver_params.focal, self.store.aspect
+            )
+        filtered = Processor(self.store, device=self.device).flow_guided_filter_array(
+            depth, ProcessorParams(op=Op.FLOW_GUIDED_FILTER, frame_radius=radius)
+        ).cpu().numpy()
+        d = pjoin(dst.dir, "depth")
+        for i in range(self.store.num_frames):
+            raw.save_raw_float32_image(
+                pjoin(d, f"frame_{i:06d}.raw"), raw.depth_to_disparity(filtered[i])
+            )
+        self.save()
+        return dst
 
     def save(self):
         """Camera state from the solver into the store, then `video.dat`

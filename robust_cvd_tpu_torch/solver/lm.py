@@ -20,6 +20,12 @@ steps. Here both are Python loops with the same caps, exits and count of
 outer steps; each CG iteration and each outer step reads one flag back to
 the host (`LMResult.syncs` counts them).
 
+Preconditioning: the exact Jacobi (or pose-block Jacobi) diagonal of
+`diag_fn`, else, with `precond_probes > 0`, a Hutchinson estimate from
+Rademacher probes. The probes come from a torch.Generator, not from
+jax.random, so the estimate agrees with the JAX package's only where it
+does not depend on the probes (a diagonal operator) and in distribution.
+
 Masking (fix_poses etc., reference lib/PoseOptimizer.cpp:915-948) is a 0/1
 SolverParams applied inside the CG operator. Lower bounds (scale >= 0 in
 depth normalization, lib/PoseOptimizer.cpp:1105-1115) are enforced by
@@ -47,7 +53,8 @@ class LMConfig(NamedTuple):
     # convergence bookkeeping restarts every `chunk` outer steps and the
     # step cap is max_outer rounded up to whole chunks, as in the JAX solver
     chunk: int = 10
-    # Hutchinson probes: not ported (the port raises on a positive value)
+    # Hutchinson probes per outer step for a diagonal preconditioner where
+    # no exact diagonal is given; 0 = off
     precond_probes: int = 0
 
 
@@ -132,12 +139,33 @@ def _cg(matvec: Callable, b, iters: int, rtol: float = 0.01, minv=None):
     return x, it, syncs
 
 
+def _diag_estimate(matvec: Callable, template, gen: torch.Generator, probes: int):
+    """Hutchinson estimate of the matvec operator's diagonal with Rademacher
+    probes drawn from `gen`: diag ~ E[(A z) * z], z in {+-1}. Clipped to a
+    positive floor, 1e-6 of the mean magnitude, so that the inverse stays
+    defined for parameters the problem barely touches."""
+    acc = None
+    for _ in range(probes):
+        z = [
+            torch.randint(0, 2, t.shape, generator=gen, device=t.device).to(t.dtype) * 2 - 1
+            for t in template
+        ]
+        az = _tmul(matvec(z), z)
+        acc = az if acc is None else _taxpy(1.0, az, acc)
+    d = [x * (1.0 / probes) for x in acc]
+    total = sum(x.abs().sum() for x in d)
+    count = sum(x.numel() for x in d)
+    floor = 1e-6 * total / count + 1e-30
+    return [torch.maximum(x.abs(), floor) for x in d]
+
+
 def _one_outer_step(
     weighted_residual_fn, robust_residual_fn, project_fn, cfg: LMConfig,
-    params, lam, mask, aux, diag_fn=None,
+    params, lam, mask, aux, diag_fn=None, gen=None,
 ):
     """One LM outer iteration: frozen IRLS weights, CG on the damped normal
-    equations, trial step with accept/reject and lambda update. Returns
+    equations, trial step with accept/reject and lambda update. `gen` draws
+    the Hutchinson probes (cfg.precond_probes > 0 and no diag_fn). Returns
     (params, lam, cost, accept, rel_decrease, start cost, CG iterations,
     host syncs); the scalars stay on the device."""
     if robust_residual_fn is None:
@@ -191,10 +219,10 @@ def _one_outer_step(
         else:
             minv = [1.0 / (dd * m + lam) for dd, m in zip(_leaves(d), mask_l)]
     elif cfg.precond_probes > 0:
-        raise NotImplementedError(
-            "Hutchinson-probe preconditioning (lm_precond_probes > 0) is not "
-            "ported: its probes come from jax.random and cannot be matched"
-        )
+        # fresh probes every outer step: `gen` advances with each draw (the
+        # JAX package folds lam's bits into its key instead)
+        d = _diag_estimate(matvec, x0, gen, cfg.precond_probes)
+        minv = [1.0 / x for x in d]
     dx, cg_it, syncs = _cg(matvec, [-t for t in g], cfg.cg_iters, minv=minv)
     trial = _rebuild(params, [p + d * m for p, d, m in zip(x0, dx, mask_l)])
     if project_fn is not None:
@@ -235,9 +263,17 @@ def solve(
       robustification; irls_w is all-ones).
     params0 / mask: SolverParams and a same-structure 0/1 SolverParams.
     project_fn(params) -> params: optional feasibility projection.
+    diag_fn(params, irls_w, aux) -> exact diag(J^T J) (or with the pose
+      blocks) for a Jacobi preconditioner; without it and with
+      cfg.precond_probes > 0, Hutchinson probes from a torch.Generator on
+      the parameters' device, seeded with 17 for each solve, estimate it.
     """
     params = params0
-    lam = torch.tensor(cfg.lam_init, dtype=torch.float32, device=params.pose.device)
+    device = params.pose.device
+    lam = torch.tensor(cfg.lam_init, dtype=torch.float32, device=device)
+    gen = None
+    if diag_fn is None and cfg.precond_probes > 0:
+        gen = torch.Generator(device=device).manual_seed(17)
     cost = cost0 = None
     steps = cg_total = syncs = 0
     chunks = max(1, -(-cfg.max_outer // cfg.chunk))
@@ -247,7 +283,7 @@ def solve(
         for _ in range(cfg.chunk):
             params, lam, cost, accept, rel, start, cg_it, cg_syncs = _one_outer_step(
                 weighted_residual_fn, robust_residual_fn, project_fn, cfg,
-                params, lam, mask, aux, diag_fn,
+                params, lam, mask, aux, diag_fn, gen,
             )
             if cost0 is None:
                 cost0 = start

@@ -33,9 +33,14 @@ BatchNorm statistics, as the JAX package's one-pair scan) and read back
 once; `eval/loss_e%04d_iter%06d.json` in the reference's layout, the eval
 depth images, the depth-transform scale maps and the scene-flow images.
 
-Not ported yet, raising NotImplementedError: RAdam and the bf16 first
-moment (optimizer slice), the post filter (processor slice) and the
-data-parallel mesh fine-tune (multi-GPU slice).
+The optimizer is optax.adam, optax.radam (ft.optimizer "RAdam") or Adam
+with a bf16 first moment (ft.optimizer_mu_bf16, ignored with RAdam), each
+one launch of the Adam kernel a step. With cfg.post_filter the newest
+depth stream is filtered after training (PoseOptimizer.filter_depth), and
+`stats["post_filter_s"]` holds its seconds.
+
+Not ported yet, raising NotImplementedError: the data-parallel mesh
+fine-tune (multi-GPU slice).
 
 Tensorboard: with ft.save_tensorboard, the tuner logs the JAX package's
 scalars, histograms and images through torch.utils.tensorboard under
@@ -313,20 +318,10 @@ class FineTuner:
                 "recon=colmap requires a pose_state_override built from the "
                 "COLMAP metadata npz (pipeline/process.py builds it)"
             )
-        if ft.optimizer.lower() == "radam":
-            raise NotImplementedError(
-                "the RAdam optimizer is not ported yet (a later optimizer slice)"
-            )
-        if ft.optimizer.lower() != "adam":
+        # optimizer registry (reference optimizer/__init__.py: {Adam, RAdam})
+        optimizer = ft.optimizer.lower()
+        if optimizer not in ("adam", "radam"):
             raise ValueError(f"unknown optimizer {ft.optimizer!r}")
-        if ft.optimizer_mu_bf16:
-            raise NotImplementedError(
-                "a bf16 Adam first moment is not ported yet (a later optimizer slice)"
-            )
-        if cfg.post_filter:
-            raise NotImplementedError(
-                "the post filter is not ported yet (processor slice)"
-            )
         self.cfg = cfg
         self.device = resolve_device(device)
         self.cudnn_tf32 = cudnn_tf32
@@ -340,7 +335,12 @@ class FineTuner:
         self.rng = np.random.default_rng(seed)
 
         lr = ft.learning_rate if ft.learning_rate > 0 else adapter.learning_rate
-        self.optimizer = FlatAdam(list(self.net.named_parameters()), lr)
+        # a bf16 first moment only for Adam, as the JAX package (ignored
+        # with RAdam)
+        self.optimizer = FlatAdam(
+            list(self.net.named_parameters()), lr, rectified=optimizer == "radam",
+            mu_bf16=ft.optimizer_mu_bf16 and optimizer == "adam",
+        )
         self.use_temporal = (
             cfg.loss.lambda_smooth_disparity > 0
             or cfg.loss.lambda_smooth_reprojection > 0
@@ -514,6 +514,10 @@ class FineTuner:
         self.refresh_depth()
         if persist:
             save_current_depth()
+        if self.cfg.post_filter and self.pose is not None:
+            t0 = time.perf_counter()
+            self.pose.filter_depth(self.cfg.filter_radius)
+            self.stats["post_filter_s"] = time.perf_counter() - t0
         if self.writer is not None:
             self.writer.flush()
         return self.history

@@ -1,8 +1,8 @@
 """Adam over one flat parameter buffer (the fine-tune optimizer).
 
 Port of the optimizer half of robust_cvd_tpu/training/fine_tune.py
-(optax.adam at :486-494, the initial-parameter copy at :511 and the
-non-finite guard at :288-307). The JAX package keeps parameters, gradients
+(optax.adam, optax.radam and optax.adam(mu_dtype=bfloat16) at :486-494,
+the initial-parameter copy at :511 and the non-finite guard at :288-307). The JAX package keeps parameters, gradients
 and Adam state as pytrees; here they are flat float32 buffers on the
 device, so one kernel launch (ops/adam.py) updates all of them:
 
@@ -37,9 +37,14 @@ from ..ops.adam import adam_update
 
 class FlatAdam:
     """optax.adam(lr) with its defaults (b1 0.9, b2 0.999, eps 1e-8, bias
-    correction on)."""
+    correction on); with `rectified`, optax.radam(lr) (threshold 5); with
+    `mu_bf16`, optax.adam(lr, mu_dtype=jnp.bfloat16): the first moment is a
+    bfloat16 buffer. The two options exclude each other."""
 
-    def __init__(self, named_params: List[Tuple[str, nn.Parameter]], lr: float):
+    def __init__(self, named_params: List[Tuple[str, nn.Parameter]], lr: float,
+                 rectified: bool = False, mu_bf16: bool = False):
+        if rectified and mu_bf16:
+            raise ValueError("optax.radam has no bf16 first moment")
         if not named_params:
             raise ValueError("no parameters to optimize")
         device = named_params[0][1].device
@@ -56,6 +61,7 @@ class FlatAdam:
             n += p.numel()
         self.numel = n
         self.lr = lr
+        self.rectified = rectified
 
         self.flat = torch.empty(n, dtype=dtype, device=device)
         self.grad = torch.zeros(n, dtype=dtype, device=device)
@@ -66,7 +72,7 @@ class FlatAdam:
             p.data = v
             p.grad = gv
         self.init = self.flat.clone()
-        self.mu = torch.zeros_like(self.flat)
+        self.mu = torch.zeros_like(self.flat, dtype=torch.bfloat16 if mu_bf16 else dtype)
         self.nu = torch.zeros_like(self.flat)
         self.count = torch.zeros((), dtype=torch.int32, device=device)
         self.leaf = self.flat.detach().requires_grad_(True)
@@ -98,6 +104,7 @@ class FlatAdam:
         """Guarded update from the accumulated `grad`; returns the device
         bool flag (True: the step was taken)."""
         ok = torch.isfinite(loss) & torch.isfinite(self.grad).all()
-        adam_update(self.flat, self.grad, self.mu, self.nu, self.count, ok, self.lr)
+        adam_update(self.flat, self.grad, self.mu, self.nu, self.count, ok, self.lr,
+                    rectified=self.rectified)
         self.count += ok.to(torch.int32)
         return ok

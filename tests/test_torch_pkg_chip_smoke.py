@@ -2,7 +2,8 @@
 
 The card-only phases (kernel builds, kernel comparisons and timing, the
 card-vs-CPU checks, the profiles) cannot run here; the pose path, the
-fine-tune path, the flow path and the whole pipeline through the CLI can,
+fine-tune path, the processor ops, the new optimizers' epochs, the flow
+path and the whole pipeline through the CLI with the post filter can,
 with the CPU device, small nets, a small frame size and one epoch, and they
 raise on any failed check (finite depth, constraints, parameters and
 losses, cold solves lowering their cost and warm ones not raising it, the
@@ -39,9 +40,21 @@ def test_path_phase_on_cpu(monkeypatch, capsys, tmp_path):
     assert "stage fine_tune_s" in out and out.count("solve {") == 6  # 5 cold, 1 warm
     assert "1 host sync in the train loop" in out
 
-    # the validate and colmap phases on the same clip and tuner
+    # the validate, processor, optimizer and colmap phases on the same clip
+    # and tuner (the processor's solver ops on the small solver schedule)
     chip_smoke.validate_phase(tuner, device="cpu")
     assert "stage validate_s" in capsys.readouterr().out
+    small = dict(num_steps=2, ctf_long=3, ctf_short=2, lm_max_outer=4, lm_cg_iters=8)
+    assert chip_smoke.processor_phase(base, tuner.solver_params, 0, device="cpu",
+                                      solver_options=small) == 0
+    out = capsys.readouterr().out
+    for line in ("processor proc_fgf_far", "card vs CPU on 6 frames", "processor compute_tracks",
+                 "processor reset_normalize_optimize", "each below its start"):
+        assert line in out
+    assert chip_smoke.optimizer_epochs_phase(tuner, device="cpu") == {
+        "adam_radam": 0, "adam_mu_bf16": 0}
+    out = capsys.readouterr().out
+    assert "optimizer radam: 1 epoch" in out and "torch.bfloat16" in out
     assert chip_smoke.colmap_phase(base, net, 0, device="cpu") == 0
     out = capsys.readouterr().out
     assert "stage colmap_fine_tune_s" in out and "0 solves" in out
@@ -86,8 +99,9 @@ def test_pipeline_phase_on_cpu(monkeypatch, capsys, tmp_path):
     launches, proc = chip_smoke.pipeline_phase(base, 8, 0, 1, device="cpu", argv=small)
     assert launches == {"corner": 0, "adam": 0}  # the CPU takes the plain versions
     out = capsys.readouterr().out
-    for line in ("pipeline stage fine_tune ", "pipeline_s_per_frame ",
-                 "pipeline flows vs truth: 30 pairs", "1 warm at or below"):
+    for line in ("pipeline stage fine_tune ", "pipeline_s_per_frame ", "post_filter_s ",
+                 "pipeline flows vs truth: 30 pairs", "1 warm at or below",
+                 "post filter: stream fine_tuned_filtered, 8 finite positive frames"):
         assert line in out
     names = [s["name"] for s in json.load(open(os.path.join(
         base, "R0-7_hierarchical2_midas2", "stage_timings.json")))["spans"]]

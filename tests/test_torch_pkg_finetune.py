@@ -33,6 +33,7 @@ import shutil
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from robust_cvd_tpu import config as jconfig
 from robust_cvd_tpu.io.store import VideoStore as JStore
@@ -183,10 +184,19 @@ def test_unported_fine_tune_paths_raise(runs):
     def ft(**kw):
         return dataclasses.replace(cfg, ft=dataclasses.replace(cfg.ft, **kw))
 
-    for c in (ft(optimizer="RAdam"), ft(optimizer_mu_bf16=True),
-              dataclasses.replace(cfg, post_filter=True)):
-        with pytest.raises(NotImplementedError):
-            FineTuner(c, tuner.adapter, tuner.clip, tuner.pose_inputs, device="cpu")
+    # RAdam, the bf16 first moment (Adam only: ignored with RAdam, as the
+    # JAX package) and the post filter are ported
+    # (tests/test_torch_pkg_options.py, tests/test_torch_pkg_pipeline.py)
+    for c, rectified, mu_dtype in (
+        (ft(optimizer="RAdam"), True, torch.float32),
+        (ft(optimizer_mu_bf16=True), False, torch.bfloat16),
+        (ft(optimizer="RAdam", optimizer_mu_bf16=True), True, torch.float32),
+        (dataclasses.replace(cfg, post_filter=True), False, torch.float32),
+    ):
+        opt = FineTuner(c, tuner.adapter, tuner.clip, tuner.pose_inputs, device="cpu").optimizer
+        assert (opt.rectified, opt.mu.dtype) == (rectified, mu_dtype)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        FineTuner(ft(optimizer="SGD"), tuner.adapter, tuner.clip, tuner.pose_inputs, device="cpu")
     # validation and recon=colmap are ported (tests/test_torch_pkg_validation.py);
     # recon=colmap needs the COLMAP poses, as in the JAX package
     FineTuner(ft(val_epoch_freq=1), tuner.adapter, tuner.clip, tuner.pose_inputs, device="cpu")

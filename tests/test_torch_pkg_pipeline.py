@@ -14,22 +14,25 @@ them near empty), and no flow target lands on the frame's edge, where the
 two packages' flows, 1e-5 px apart, would put a border pixel in bounds in
 one and out in the other,
 motion-segmentation dynamic masks, the small solver schedule, one epoch at
-the adapter's learning rate of 1e-6, flow visualizations and tensorboard
-on (image and histogram summaries every 2 pairs), depth visualizations
-on. The JAX side runs its single-device path.
+the adapter's learning rate of 1e-6, the post filter (a fine_tuned_filtered
+stream, frame_radius 4), flow visualizations and tensorboard on (image and
+histogram summaries every 2 pairs), depth visualizations on. The JAX side
+runs its single-device path.
 
 Held: color_down byte for byte; initial depth within 1e-4 relative; flows
 within 1e-4 px; flow masks, dynamic_mask PNGs and the flow_list.json pairs
 identical (mask ratios then too); the poses after the last warm solve
-within 1e-3; fine-tuned depth within 1e-3 relative; stage_timings.json with
-the JAX package's span names in its order (the port adds the flow stage's
-compute_flow/load_s, chunk_s and write_s right after compute_flow); the
+within 1e-3; fine-tuned depth within 1e-3 relative, and its filtered stream
+too; stage_timings.json with the JAX package's span names in its order (the
+port adds the flow stage's compute_flow/load_s, chunk_s and write_s right
+after compute_flow, and fine_tune/post_filter_s last); the
 same vis_flow files, within 2 of 255 per channel (flows 1e-4 px apart move
 the colour wheel's floor by at most that); the fine-tuned depth's colour
 maps within 4 of 255 (depth 1e-3 apart moves a pixel by at most one step
 of the 256-entry colour map); the same tensorboard tags.
-Then a rerun through the CLI (main([...], device="cpu"), checkpoints under
-<clip>/models/) recomputes no finished stage, and --mask_rcnn_weights
+Then a rerun through the CLI (main([...], device="cpu") with --post_filter,
+checkpoints under <clip>/models/) recomputes no finished stage and filters
+again, and --mask_rcnn_weights
 raises NotImplementedError before the mask stage's handler can swallow it.
 """
 
@@ -63,9 +66,10 @@ from robust_cvd_tpu_torch.models import raft as tr
 
 N, H, W = 4, 48, 64
 OPT = dict(num_steps=2, ctf_long=3, ctf_short=2, lm_max_outer=4, lm_cg_iters=8)
-CFG = dict(size=32, align=32, vis_flow=True)
+CFG = dict(size=32, align=32, vis_flow=True, post_filter=True)
 FT = dict(num_epochs=1, batch_size=2, display_freq=2, save_depth_visualization=True)
-ARGV = ["--size", "32", "--align", "32", "--vis_flow", "true", "--num_epochs", "1",
+ARGV = ["--size", "32", "--align", "32", "--vis_flow", "true", "--post_filter", "true",
+        "--num_epochs", "1",
         "--batch_size", "2", "--display_freq", "2", "--save_depth_visualization", "true",
         "--opt.num_steps", "2", "--opt.ctf_long", "3",
         "--opt.ctf_short", "2", "--opt.lm_max_outer", "4", "--opt.lm_cg_iters", "8"]
@@ -219,7 +223,7 @@ def test_poses_after_the_last_warm_solve(runs):
     jv = load_video_dat(pjoin(runs["jbase"], "video.dat"))
     tv = load_video_dat(pjoin(runs["tbase"], "video.dat"))
     assert [s.name for s in tv.depth_streams] == [s.name for s in jv.depth_streams] == [
-        "depth_midas2", "fine_tuned"]
+        "depth_midas2", "fine_tuned", "fine_tuned_filtered"]
     for tf, jf in zip(tv.depth_streams[-1].frames, jv.depth_streams[-1].frames):
         np.testing.assert_allclose(tf.position + tf.quaternion, jf.position + jf.quaternion,
                                    atol=1e-3)
@@ -235,6 +239,20 @@ def test_fine_tuned_depth(runs):
     assert [h["skipped"] for h in tt.history] == [0]
 
 
+def test_post_filter_stream(runs):
+    """--post_filter: the newest stream copied to fine_tuned_filtered and
+    filtered there, within the fine-tuned depth's tolerance of the JAX
+    package's; the filter moved the depth."""
+    jt, tt = runs["jtuner"], runs["ttuner"]
+    sub = os.path.join("fine_tuned_filtered", "depth")
+    got, want = _disparity(tt.out_dir, sub), _disparity(jt.out_dir, sub)
+    assert np.isfinite(got).all() and (got > 0).all()
+    np.testing.assert_allclose(got, want, atol=1e-3 * np.abs(want).max())
+    assert np.abs(got - _disparity(tt.out_dir, "depth")).max() > 1e-4
+    assert tt.stats["post_filter_s"] > 0
+    assert tt.pose.streams[-1].name == "fine_tuned_filtered"
+
+
 def _spans(base, tuner):
     path = pjoin(os.path.dirname(tuner.out_dir), "stage_timings.json")
     return [s["name"] for s in json.load(open(path))["spans"]]
@@ -246,7 +264,8 @@ def test_stage_timings_spans(runs):
     flow_stats = ["compute_flow/load_s", "compute_flow/chunk_s", "compute_flow/write_s"]
     k = got.index("compute_flow")
     assert got[k + 1 : k + 4] == flow_stats
-    assert [n for n in got if n not in flow_stats] == want
+    assert got[-1] == "fine_tune/post_filter_s"
+    assert [n for n in got[:-1] if n not in flow_stats] == want
     assert "visualize_flow" in got and "compute_dynamic_mask" in got
 
 
@@ -312,6 +331,8 @@ def test_cli_rerun_skips_finished_stages(runs, monkeypatch):
     before = {p: os.path.getmtime(p) for p in stable + [timings]}
     proc = main(["--path", base, *ARGV], device="cpu")
     assert proc.device.type == "cpu" and proc.tuner.history[0]["skipped"] == 0
+    assert proc.tuner.pose.streams[-1].name == "fine_tuned_filtered"
+    assert "post_filter_s" in proc.tuner.stats
     for p in stable:
         assert os.path.getmtime(p) == before[p], f"stage recomputed {p}"
     assert os.path.getmtime(timings) > before[timings]

@@ -147,8 +147,17 @@ def test_unported_paths_raise(runs, tmp_path):
 
     vd = load_video_dat(os.path.join(runs["tdir"], "video.dat"))
     assert [s.name for s in vd.depth_streams] == ["depth_midas2"]
-    with pytest.raises(NotImplementedError):
-        tpose.filter_depth(4)
+    # the post filter is ported: a <last>_filtered stream of finite,
+    # positive disparity, registered in video.dat (its parity with the JAX
+    # package: tests/test_torch_pkg_pipeline.py::test_post_filter_stream)
+    ref = tpose.filter_depth(4)
+    assert ref.name == "depth_midas2_filtered" and tpose.streams[-1] == ref
+    disp = np.stack([raw.load_raw_float32_image(os.path.join(ref.dir, "depth", frame_name(i, ".raw")))
+                     for i in range(N)])
+    assert np.isfinite(disp).all() and (disp > 0).all()
+    vd = load_video_dat(os.path.join(runs["tdir"], "video.dat"))
+    assert [s.name for s in vd.depth_streams] == ["depth_midas2", "depth_midas2_filtered"]
+    tpose.streams.pop()  # the fixture's optimizer, as the other tests left it
     # dynamic_constraints="Ransac" now runs: the flags of a rigid pan are
     # those of the JAX package (tests/test_torch_pkg_masks.py) and mostly
     # static

@@ -3,13 +3,15 @@
     PYTHONPATH=. python3 tools/pipeline_cuda.py [--frames 100] [--epochs 10] [--seed 0]
         [--variant "--save_tensorboard false" --variant "" ...]
 
-Runs chip_smoke.pipeline_phase (main(["--path", clip]) on a clip of
-color_full PNGs with seeded full-width checkpoints, and its checks) once
-per --variant, in the order given, each on a fresh clip in this one
-process; a variant is a string of extra CLI flags (the empty string: every
+Runs chip_smoke.pipeline_phase (main(["--path", clip, "--post_filter",
+"true"]) on a clip of color_full PNGs with seeded full-width checkpoints,
+and its checks) once per --variant, in the order given, each on a fresh
+clip in this one process, then chip_smoke.post_filter_profile on it; a
+variant is a string of extra CLI flags (the empty string: every other
 default). The kernels are built on their first launch. Prints, per run, the
-stage table, the epochs' seconds and the solves' totals, and at the end one
-line per run with its total, train-step and solve seconds. Needs one card.
+stage table, the epochs' seconds, the solves' totals and the post filter's
+profile, and at the end one line per run with its total, train-step, solve
+and post-filter seconds. Needs one card.
 """
 
 from __future__ import annotations
@@ -50,10 +52,11 @@ def main() -> int:
                 os.path.join(base, "clip"), args.frames, args.seed, args.epochs,
                 argv=shlex.split(variant))
             total = time.perf_counter() - t0
+            chip_smoke.post_filter_profile(proc)
         stats = proc.tuner.stats
         rows.append(f"run {k} flags {variant!r}: phase {total:.3f} s, train steps "
                     f"{stats['train_steps_s']:.3f} s, solves {stats['pose_opt_s']:.3f} s, "
-                    f"launches {launches}")
+                    f"post filter {stats['post_filter_s']:.3f} s, launches {launches}")
         del proc
         torch.cuda.empty_cache()
     for row in rows:

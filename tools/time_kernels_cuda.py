@@ -1,4 +1,6 @@
-"""Time the port's two CUDA kernels on one NVIDIA GPU, without the paths.
+"""Time the port's two CUDA kernels on one NVIDIA GPU, without the paths
+(the Adam kernel in each of its optax modes: Adam, RAdam, a bf16 first
+moment).
 
     PYTHONPATH=. python3 tools/time_kernels_cuda.py [--repeats 3] [--checks]
 
@@ -42,7 +44,8 @@ def main() -> int:
         chip_smoke.corner_phase(100, args.seed)
     with torch.device("meta"):
         n = sum(p.numel() for p in MidasNet().parameters())
-    print(json.dumps(chip_smoke.adam_phase(n, args.seed)))
+    for entry in chip_smoke.adam_phase(n, args.seed):
+        print(json.dumps(entry))
     print(chip_smoke.device_line())
     return 0
 
