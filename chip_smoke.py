@@ -134,6 +134,23 @@ Phases, each of which raises on failure (exit code 1):
    disparity as depth_colmap_dense/, then DatasetProcessor.fine_tune with
    recon=colmap for 1 epoch: no solve runs, the poses are the imported
    ones, the depth moves, one Adam launch a step.
+19. mask_rcnn: on the pipeline clip after the pipeline phase, a seeded
+   detectron2-layout checkpoint whose heads are shaped on the first frame
+   (mask_rcnn_state: RCNN_KEEP of its proposals score person) pickled as
+   <clip>/models/mask_rcnn_R_50_FPN_3x.pkl, then
+   compute_dynamic_masks_rcnn(store, pkl) in bf16 on the card over the
+   100 frames at detectron2's test size (224x384 -> 778x1333, padded to
+   800x1344). Checks 100 PNGs of 0 and 255 only, each frame's dynamic
+   share in (0, RCNN_MAX_SHARE) and 1 to RCNN_MAX_DYNAMIC dynamic
+   detections in each; card vs CPU at float32 without TF32 on one frame at
+   test size 320 (mask_rcnn_checks: P2-P6 and RPN outputs, detections,
+   dynamic masks, roi_align_fpn and paste_masks); bf16 against float32 on
+   one full-size frame (printed). Prints the stage's stats, seconds a frame
+   in steady state and host syncs a frame, then profiles one steady frame
+   pair (mask_rcnn_profile: device time of the backbone and FPN, RPN with
+   NMS, ROIAlign, the heads, detection and the paste; the idle share).
+   No CUDA kernel of the repo is on this path (models/mask_rcnn.py is
+   plain PyTorch, as its JAX counterpart reaches no pallas_call).
 
 Prints per-stage seconds, a {"kernels": [...]} line (each kernel's entry
 carries its launches by path; the corner kernel's, under "flow_path", its
@@ -1636,7 +1653,7 @@ def _device_events(prof):
 
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith(("flow.", "raft."))]
+            and not e.name.startswith(("flow.", "raft.", "mask_rcnn."))]
 
 
 def _time_by_name(kernels) -> dict:
@@ -1971,6 +1988,309 @@ def post_filter_profile(proc) -> dict:
     return result
 
 
+# The mask_rcnn phase: Mask R-CNN dynamic masks on the pipeline clip.
+RCNN_KEEP = 20  # proposals of the first frame the shaped heads score person above 0.5
+RCNN_MAX_DYNAMIC = 50  # a frame's dynamic detections, at most
+RCNN_MAX_SHARE = 0.9  # a frame's dynamic share, below this (and above 0)
+RCNN_CPU_TEST_SIZE = 320  # the card-vs-CPU frame's shortest edge
+RCNN_TOL = 1e-4  # P2-P6, RPN logits and deltas, card vs CPU: of their largest magnitude
+RCNN_MARGIN = 1e-3  # detections compared card vs CPU: score this far above the threshold
+RCNN_MASK_SHARE = 0.005  # dynamic-mask pixels that may differ card vs CPU
+ROI_ALIGN_TOL = 1e-5  # roi_align_fpn card vs CPU, of the largest magnitude
+PASTE_SHARE = 1e-4  # paste_masks pixels that may differ card vs CPU (values at 0.5)
+RCNN_RANGES = ("mask_rcnn.backbone", "mask_rcnn.rpn", "mask_rcnn.roi_align",
+               "mask_rcnn.heads", "mask_rcnn.detect", "mask_rcnn.paste")
+
+
+def mask_rcnn_state(frame, seed: int, device: str = "cuda", keep: int = RCNN_KEEP,
+                    test_size: int = 800) -> dict:
+    """A seeded detectron2-layout Mask R-CNN state dict (float32, on the host)
+    whose heads are shaped on `frame` (H, W, 3) so that detections come out:
+    cls_score's rows and biases of every class but person zeroed (their
+    logits 0, so person scores above 0.5 where its logit exceeds ln 80), the
+    person row scaled to a logit spread of 2 over the frame's proposals and
+    its bias set midway between the keep-th and the next of them; the mask
+    predictor's class 0 biased by +1."""
+    import torch
+
+    from robust_cvd_tpu_torch.device import float32_precision
+    from robust_cvd_tpu_torch.models import mask_rcnn as M
+    from robust_cvd_tpu_torch.pipeline.masks import rcnn_input
+
+    net = M.seeded_init_(M.MaskRCNN(dtype=torch.float32), seed).to(device).eval()
+    with torch.inference_mode(), float32_precision(False):
+        x, _ = rcnn_input(torch.from_numpy(frame[None]).to(device), test_size)
+        feats = net.features(x)
+        logits = net.box_outputs(feats, net.proposals(feats, tuple(x.shape[-2:])))[0]
+    u = torch.sort(logits[0, :, 0].double().cpu(), descending=True).values
+    scale = 2.0 / float(u.std())
+    cls = net.roi_heads.box_predictor.cls_score
+    with torch.no_grad():
+        person = cls.weight[0] * scale
+        cls.weight.zero_()
+        cls.bias.zero_()
+        cls.weight[0] = person
+        cls.bias[0] = math.log(80.0) - scale * float(u[keep - 1] + u[keep]) / 2
+        net.roi_heads.mask_head.predictor.bias[0] = 1.0
+    return {k: v.detach().cpu() for k, v in net.state_dict().items()}
+
+
+def mask_rcnn_checkpoint(base: str, seed: int, device: str = "cuda", keep: int = RCNN_KEEP,
+                         test_size: int = 800) -> str:
+    """mask_rcnn_state on the clip's first color_full frame, pickled in the
+    model zoo's layout as <clip>/models/mask_rcnn_R_50_FPN_3x.pkl."""
+    import pickle
+
+    from robust_cvd_tpu_torch.io.store import VideoStore
+
+    frame = VideoStore.open(base).load_color_full()[0]
+    sd = mask_rcnn_state(frame, seed, device, keep, test_size)
+    os.makedirs(os.path.join(base, "models"), exist_ok=True)
+    path = os.path.join(base, "models", "mask_rcnn_R_50_FPN_3x.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({"model": {k: v.numpy() for k, v in sd.items()}, "__author__": "seeded"}, f)
+    return path
+
+
+def mask_rcnn_clip(base: str, n: int, seed: int) -> None:
+    """pipeline_clip's color_full PNGs with frames.txt and color_down as the
+    pipeline makes them (the mask_rcnn phase's inputs without the rest of
+    the pipeline)."""
+    from robust_cvd_tpu_torch.pipeline.video import VideoStage
+
+    pipeline_clip(base, n, seed)
+    video = VideoStage(base)
+    video.extract_frames()
+    video.downscale_frames("color_down", DOWN_SIZE[0], ".raw", DOWN_SIZE[1])
+
+
+def _rcnn_net(pkl: str, dtype, device: str):
+    from robust_cvd_tpu_torch.models import mask_rcnn as M
+
+    net = M.MaskRCNN(dtype=dtype).eval()
+    return M.load_weights_(net, M.load_checkpoint(pkl)).to(device)
+
+
+def _dynamic_detections(det) -> np.ndarray:
+    from robust_cvd_tpu_torch.models.mask_rcnn import DYNAMIC_OBJECT_CATEGORIES
+
+    cls = det["classes"].cpu().numpy()
+    return ((det["scores"].cpu().numpy() > 0.5)
+            & np.isin(cls, DYNAMIC_OBJECT_CATEGORIES)).sum(-1)
+
+
+def mask_rcnn_phase(base: str, seed: int, device: str = "cuda", keep: int = RCNN_KEEP,
+                    test_size: int = 800, cpu_test_size: int = RCNN_CPU_TEST_SIZE):
+    """Mask R-CNN dynamic masks on a clip with color_full and color_down
+    (the pipeline clip): a seeded checkpoint with shaped heads
+    (mask_rcnn_checkpoint), then compute_dynamic_masks_rcnn(store, pkl) in
+    bf16 on `device` over every frame (the motion-segmentation masks are
+    moved to dynamic_mask_motion/). Checks one PNG a frame, values 0 and
+    255 only, each frame's dynamic share in (0, RCNN_MAX_SHARE), and 1 to
+    RCNN_MAX_DYNAMIC dynamic detections in each frame; then mask_rcnn_checks.
+    Prints the stage's stats, seconds a frame in steady state and the host
+    syncs a frame. Returns the checkpoint's path and the bf16 net."""
+    import torch
+
+    from robust_cvd_tpu_torch.io.store import VideoStore, frame_name, load_png_gray
+    from robust_cvd_tpu_torch.models import mask_rcnn as M
+    from robust_cvd_tpu_torch.pipeline import masks
+
+    t0 = time.perf_counter()
+    pkl = mask_rcnn_checkpoint(base, seed, device, keep, test_size)
+    print(f"stage mask_rcnn_checkpoint_s {time.perf_counter() - t0:.3f}")
+    motion = os.path.join(base, "dynamic_mask")
+    if os.path.isdir(motion):
+        os.rename(motion, motion + "_motion")
+    store = VideoStore.open(base)
+    n = store.num_frames
+    stats = {}
+    M.nms_keep.syncs = 0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    masks.compute_dynamic_masks_rcnn(store, pkl, stats=stats, device=device,
+                                     test_size=test_size)
+    total = time.perf_counter() - t0
+    if device == "cuda":
+        print(f"mask_rcnn peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    syncs = M.nms_keep.syncs
+    passes = -(-n // masks.RCNN_FRAMES_PER_PASS)
+    for k in sorted(stats):
+        print(f"mask_rcnn stats {k} {stats[k]:.4f}")
+    steady = max(n - masks.RCNN_FRAMES_PER_PASS, 1)
+    (th, tw), (ph, pw) = masks.rcnn_test_size(store.load_color_full().shape[1:3], test_size)
+    print(f"mask_rcnn_s {total:.3f} for {n} frames at {th}x{tw} padded to {ph}x{pw}: "
+          f"steady {stats.get('steady_infer_s', 0.0) / steady:.4f} s a frame "
+          f"({masks.RCNN_FRAMES_PER_PASS} a pass), first pass {stats['first_dispatch_s']:.3f} s")
+    print(f"mask_rcnn host syncs: {syncs} NMS convergence reads and {2 * passes} copies "
+          f"(frames in, masks out) for {n} frames, {(syncs + 2 * passes) / n:.2f} a frame")
+
+    names = [frame_name(i, ".png") for i in range(n)]
+    pngs = np.stack([load_png_gray(os.path.join(base, "dynamic_mask", f)) for f in names])
+    if not set(np.unique(pngs)) <= {0, 255}:
+        raise AssertionError(f"dynamic masks hold values {np.unique(pngs)}, not 0 and 255")
+    share = (pngs == 0).reshape(n, -1).mean(1)
+    print(f"mask_rcnn dynamic share: min {share.min():.4f}, mean {share.mean():.4f}, "
+          f"max {share.max():.4f} over {n} frames")
+    if not (share > 0).all() or not (share < RCNN_MAX_SHARE).all():
+        raise AssertionError(f"a frame's dynamic share is 0 or {RCNN_MAX_SHARE} or more")
+
+    net = _rcnn_net(pkl, torch.bfloat16 if device == "cuda" else torch.float32, device)
+    frames = store.load_color_full()
+    counts = []
+    with torch.inference_mode():
+        for s in range(0, n, masks.RCNN_FRAMES_PER_PASS):
+            x, _ = masks.rcnn_input(torch.from_numpy(
+                frames[s : s + masks.RCNN_FRAMES_PER_PASS]).to(device), test_size)
+            counts.extend(_dynamic_detections(net(x)).tolist())
+    print(f"mask_rcnn dynamic detections a frame: min {min(counts)}, mean "
+          f"{np.mean(counts):.2f}, max {max(counts)}")
+    if min(counts) < 1 or max(counts) > RCNN_MAX_DYNAMIC:
+        raise AssertionError(f"a frame has no dynamic detection or more than {RCNN_MAX_DYNAMIC}")
+    mask_rcnn_checks(pkl, frames[0], store.load_color_down().shape[1:3], device,
+                     test_size, cpu_test_size)
+    return pkl, net
+
+
+def _rel_err(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def mask_rcnn_checks(pkl: str, frame, down_hw, device: str = "cuda", test_size: int = 800,
+                     cpu_test_size: int = RCNN_CPU_TEST_SIZE) -> None:
+    """Card against CPU at float32 without TF32 on one frame at
+    `cpu_test_size`: P2-P6 and the RPN logits and deltas within RCNN_TOL
+    of their largest magnitude; the same detections among those scoring
+    RCNN_MARGIN or more above the threshold on either side (class, box
+    within 0.01 px, score within 1e-4); dynamic masks differing in at most
+    RCNN_MASK_SHARE of their pixels; roi_align_fpn (ROI_ALIGN_TOL) and
+    paste_masks (PASTE_SHARE) on the CPU's features and detections. Then,
+    printed only, bf16 against float32 on the card on the frame at
+    `test_size`: the share of dynamic-mask pixels that differ."""
+    import torch
+
+    from robust_cvd_tpu_torch.device import float32_precision
+    from robust_cvd_tpu_torch.models import mask_rcnn as M
+    from robust_cvd_tpu_torch.pipeline.masks import rcnn_frames, rcnn_input
+
+    out = {}
+    with torch.inference_mode(), float32_precision(False):
+        for dev in ("cpu", device):
+            net = _rcnn_net(pkl, torch.float32, dev)
+            img = torch.from_numpy(frame[None]).to(dev)
+            x, _ = rcnn_input(img, cpu_test_size)
+            feats = net.features(x)
+            rpn = net.proposal_generator.rpn_head(feats)
+            det = net(x)
+            dyn = rcnn_frames(net, img, down_hw, cpu_test_size)
+            out[dev] = ([f.cpu() for f in feats], [(o.cpu(), d.cpu()) for o, d in rpn],
+                        {k: v.cpu() for k, v in det.items()}, dyn.cpu())
+            del net
+        (cf, cr, cd, cm), (gf, gr, gd, gm) = out["cpu"], out[device]
+        feat_err = max(_rel_err(g, c) for g, c in zip(gf, cf))
+        rpn_err = max(max(_rel_err(go, co), _rel_err(gdl, cdl))
+                      for (go, gdl), (co, cdl) in zip(gr, cr))
+        print(f"mask_rcnn card vs CPU at {tuple(x.shape[-2:])}: P2-P6 {feat_err:.3g}, RPN "
+              f"{rpn_err:.3g} of the largest magnitude (tolerance {RCNN_TOL})")
+        if not feat_err <= RCNN_TOL or not rpn_err <= RCNN_TOL:
+            raise AssertionError("Mask R-CNN features or RPN outputs differ card vs CPU")
+
+        def confident(det):
+            keep = det["scores"][0] >= 0.5 + RCNN_MARGIN
+            return [(int(c), b, float(s)) for c, b, s in zip(
+                det["classes"][0][keep], det["boxes"][0][keep], det["scores"][0][keep])]
+
+        a, b = confident(cd), confident(gd)
+        matched = sum(any(c == c2 and float((bx - bx2).abs().max()) < 0.01
+                          and abs(s - s2) < 1e-4 for c2, bx2, s2 in b) for c, bx, s in a)
+        differ = float((cm != gm).float().mean())
+        print(f"mask_rcnn card vs CPU detections: {len(a)} on the CPU and {len(b)} on the "
+              f"card score {RCNN_MARGIN} or more above 0.5, {matched} matched; dynamic masks "
+              f"differ in {differ:.5f} of pixels (at most {RCNN_MASK_SHARE})")
+        if not a or matched != len(a) or len(b) != len(a) or differ > RCNN_MASK_SHARE:
+            raise AssertionError("Mask R-CNN detections or dynamic masks differ card vs CPU")
+
+        boxes = cd["boxes"]
+        ra = {dev: M.roi_align_fpn([f.to(dev) for f in cf], boxes.to(dev), 14).cpu()
+              for dev in ("cpu", device)}
+        roi_err = _rel_err(ra[device], ra["cpu"])
+        hw = tuple(x.shape[-2:])
+        pa = {dev: M.paste_masks(cd["masks"].to(dev), boxes.to(dev), hw).cpu()
+              for dev in ("cpu", device)}
+        paste_differ = float((pa[device] != pa["cpu"]).float().mean())
+        print(f"mask_rcnn card vs CPU: roi_align_fpn {roi_err:.3g} of the largest magnitude "
+              f"(tolerance {ROI_ALIGN_TOL}), paste_masks differs in {paste_differ:.3g} of "
+              f"pixels (at most {PASTE_SHARE}), {int(pa['cpu'].sum())} pasted")
+        if not roi_err <= ROI_ALIGN_TOL or paste_differ > PASTE_SHARE:
+            raise AssertionError("roi_align_fpn or paste_masks differs card vs CPU")
+
+    with torch.inference_mode():
+        img = torch.from_numpy(frame[None]).to(device)
+        dyn = {}
+        for dt in (torch.bfloat16, torch.float32):
+            net = _rcnn_net(pkl, dt, device)
+            with float32_precision(False):
+                dyn[dt] = rcnn_frames(net, img, down_hw, test_size).cpu()
+            del net
+    print(f"mask_rcnn bf16 vs float32 on the card at test size {test_size}: dynamic masks "
+          f"differ in {float((dyn[torch.bfloat16] != dyn[torch.float32]).float().mean()):.5f} "
+          f"of pixels (dynamic share {float(dyn[torch.float32].float().mean()):.4f} at float32, "
+          f"{float(dyn[torch.bfloat16].float().mean()):.4f} at bf16; printed, not checked)")
+
+
+def mask_rcnn_profile(net, frames, down_hw, test_size: int = 800) -> None:
+    """torch.profiler over one steady frame pair of the stage's pass
+    (rcnn_frames, bf16): the device time of the backbone and FPN, RPN with
+    its NMS, ROIAlign, the heads, detection (class scores, boxes, NMS) and
+    the paste, the device idle share, and the pass's host syncs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from robust_cvd_tpu_torch.models import mask_rcnn as M
+    from robust_cvd_tpu_torch.pipeline.masks import rcnn_frames
+
+    x = torch.from_numpy(frames[:2]).cuda()
+    with torch.inference_mode():
+        for _ in range(2):
+            rcnn_frames(net, x, down_hw, test_size).cpu()
+        torch.cuda.synchronize()
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            rcnn_frames(net, x, down_hw, test_size).cpu()
+        plain = (time.perf_counter() - t0) / reps
+        M.nms_keep.syncs = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            rcnn_frames(net, x, down_hw, test_size).cpu()
+            torch.cuda.synchronize()
+    syncs = M.nms_keep.syncs
+    kernels = _device_events(prof)
+    print(f"mask_rcnn profile: a pass of 2 frames {plain * 1e3:.2f} ms unprofiled (host clock, "
+          f"mean of {reps}, frames on the card, masks read back), {syncs} NMS syncs and 1 "
+          f"readback a pass")
+    if not kernels:
+        print("mask_rcnn profile: the profiler recorded no device time; split not measured")
+        return
+    busy, window = _busy_us(kernels)
+    total = sum(_time_by_name(kernels).values())
+    print(f"mask_rcnn profile: device busy {busy / 1e3:.2f} ms, {len(kernels)} kernels; "
+          f"device idle share {1 - busy / window:.4f} of the {window / 1e3:.2f} ms kernel "
+          f"window, {1 - busy / 1e3 / (plain * 1e3):.4f} of the unprofiled pass")
+    cpu_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    ranged = 0.0
+    for name in RCNN_RANGES:
+        dev = sum(getattr(e, "device_time_total", 0.0) for e in cpu_events if e.name == name)
+        ranged += dev
+        print(f"mask_rcnn profile range {name}: device {dev / 1e3:.3f} ms, "
+              f"{dev / total:.2%} of device kernel time")
+    print(f"mask_rcnn profile: outside the ranges (resize, pad, crop, downsample, casts) "
+          f"{(total - ranged) / 1e3:.3f} ms")
+    for name, t in sorted(_time_by_name(kernels).items(), key=lambda kv: -kv[1])[:8]:
+        print(f"mask_rcnn profile top: {t / 1e3:8.3f} ms {t / total:7.2%}  {name[:110]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=100,
@@ -2041,6 +2361,17 @@ def main() -> int:
                                     args.epochs)
         post_filter_profile(proc)
         del proc
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        clip = os.path.join(base, "clip")
+        _, rcnn_net = mask_rcnn_phase(clip, args.seed)
+        from robust_cvd_tpu_torch.io.store import VideoStore
+
+        rcnn_store = VideoStore.open(clip)
+        mask_rcnn_profile(rcnn_net, rcnn_store.load_color_full(),
+                          rcnn_store.load_color_down().shape[1:3])
+        del rcnn_net
+        print(f"stage mask_rcnn_phase_s {time.perf_counter() - t0:.3f}")
     launches["pipeline"] = pipe["corner"]
     corner_k["launches"] = sum(launches.values())
     corner_k["launches_by_path"] = launches

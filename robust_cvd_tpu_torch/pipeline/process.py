@@ -11,8 +11,9 @@ process.py:150-152). The models come from their checkpoints under
 With recon=colmap the fine-tune takes its poses fixed from a COLMAP
 reconstruction (`_colmap_fixed_poses`) and runs no pose solve.
 
-Not ported: Mask R-CNN dynamic masks (--mask_rcnn_weights raises
-NotImplementedError before the mask stage).
+The dynamic-mask stage runs Mask R-CNN where --mask_rcnn_weights names an
+existing detectron2 checkpoint (its stats become compute_dynamic_mask/<name>
+spans, and a failure raises), and motion segmentation otherwise.
 """
 
 from __future__ import annotations
@@ -104,14 +105,6 @@ class DatasetProcessor:
         """Every stage in order on `cfg.path`; returns the clip's store and
         keeps the StageTracer (`tracer`) and the FineTuner (`tuner`)."""
         cfg = self.cfg
-        if cfg.mask_rcnn_weights and os.path.exists(cfg.mask_rcnn_weights) and (
-                cfg.opt.dynamic_constraints == "Mask"):
-            # raised here, not in the mask stage, whose handler would take
-            # it for a failed mask run and go on without masks
-            raise NotImplementedError(
-                "Mask R-CNN dynamic masks (--mask_rcnn_weights) are not ported yet "
-                "(Mask R-CNN slice)"
-            )
         echo_non_default(cfg)  # PRINT_PARAM_IF_NEQ (core/ParamsBase.h:25-28)
         tracer = self.tracer = StageTracer(device=self.device)
         video = VideoStage(cfg.path, cfg.video_file)
@@ -160,20 +153,31 @@ class DatasetProcessor:
                 flow_stage.visualize_flow(index_pairs)
 
         # dynamic masks (the reference runs Mask R-CNN here, process.py:
-        # 147-165): geometric motion segmentation from the flow; external
-        # dynamic_mask/ frames take precedence
+        # 147-165): Mask R-CNN with existing --mask_rcnn_weights, geometric
+        # motion segmentation from the flow otherwise; external
+        # dynamic_mask/ frames take precedence. Unlike the JAX package, a
+        # Mask R-CNN failure (an unreadable checkpoint, a missing key, a
+        # CUDA error) raises out of the pipeline: the "continuing" handler
+        # wraps motion segmentation only.
         if cfg.opt.dynamic_constraints == "Mask":
-            from .masks import compute_dynamic_masks
+            from .masks import compute_dynamic_masks, compute_dynamic_masks_rcnn
 
+            mask_stats: dict = {}
             with tracer.span("compute_dynamic_mask"):
-                if cfg.mask_rcnn_weights:
-                    print(f"--mask_rcnn_weights {cfg.mask_rcnn_weights!r} not found; "
-                          "falling back to motion segmentation")
-                try:
-                    compute_dynamic_masks(store)
-                except Exception as e:  # mask failures do not abort the pipeline
-                    traceback.print_exc()
-                    print(f"dynamic mask generation failed ({e!r}); continuing")
+                if cfg.mask_rcnn_weights and os.path.exists(cfg.mask_rcnn_weights):
+                    compute_dynamic_masks_rcnn(store, cfg.mask_rcnn_weights, stats=mask_stats,
+                                               device=self.device)
+                else:
+                    if cfg.mask_rcnn_weights:
+                        print(f"--mask_rcnn_weights {cfg.mask_rcnn_weights!r} not found; "
+                              "falling back to motion segmentation")
+                    try:
+                        compute_dynamic_masks(store)
+                    except Exception as e:  # mask failures do not abort the pipeline
+                        traceback.print_exc()
+                        print(f"dynamic mask generation failed ({e!r}); continuing")
+            for name, sec in mask_stats.items():
+                tracer.spans.append({"name": f"compute_dynamic_mask/{name}", "sec": sec})
 
         with tracer.span("fine_tune"):
             tuner = self.tuner = self.fine_tune(store, depth)

@@ -109,6 +109,29 @@ def test_pipeline_phase_on_cpu(monkeypatch, capsys, tmp_path):
     assert proc.device.type == "cpu" and len(proc.tuner.history) == 1
 
 
+def test_mask_rcnn_phase_on_cpu(monkeypatch, capsys, tmp_path):
+    """The mask_rcnn phase at a cut size: 4 frames of 48x64, test size 64
+    (padded to 64x96), heads shaped so that 3 proposals of the first frame
+    score person, on the CPU: the stage over the clip, its checks (PNGs,
+    dynamic shares, dynamic detections a frame) and mask_rcnn_checks with
+    the CPU standing in for the card; they raise on failure."""
+    monkeypatch.setattr(chip_smoke, "H", 48)
+    monkeypatch.setattr(chip_smoke, "W", 64)
+    monkeypatch.setattr(chip_smoke, "DOWN_SIZE", (64, 16))
+    base = str(tmp_path / "clip")
+    chip_smoke.mask_rcnn_clip(base, 4, 0)
+    pkl, net = chip_smoke.mask_rcnn_phase(base, 0, device="cpu", keep=3, test_size=64,
+                                          cpu_test_size=64)
+    assert os.path.exists(pkl) and net.dtype == torch.float32
+    out = capsys.readouterr().out
+    for line in ("stage mask_rcnn_checkpoint_s", "mask_rcnn stats first_dispatch_s",
+                 "for 4 frames at 64x85 padded to 64x96", "mask_rcnn dynamic share: min",
+                 "mask_rcnn card vs CPU detections: 3 on the CPU and 3 on the card",
+                 "paste_masks differs in 0 of pixels", "mask_rcnn bf16 vs float32"):
+        assert line in out
+    assert len(os.listdir(os.path.join(base, "dynamic_mask"))) == 4
+
+
 def test_quality_phase_checks(monkeypatch, capsys):
     """The quality phase's holds, on stand-in gate results: the JAX package's
     values pass; a gate more than GATE_SLACK below, or a contamination gate

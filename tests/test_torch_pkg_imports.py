@@ -225,6 +225,11 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch, tmp_path):
                  quality.contaminated_constraint_gate):
         with pytest.raises(RuntimeError, match="CUDA"):
             gate(tiny=True)
+    from robust_cvd_tpu_torch.pipeline.masks import compute_dynamic_masks_rcnn
+
+    (tmp_path / "models" / "mask_rcnn.pkl").write_bytes(b"")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compute_dynamic_masks_rcnn(store, str(tmp_path / "models" / "mask_rcnn.pkl"))
     assert resolve_device("cpu").type == "cpu"
 
 

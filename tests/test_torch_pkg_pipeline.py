@@ -32,8 +32,11 @@ maps within 4 of 255 (depth 1e-3 apart moves a pixel by at most one step
 of the 256-entry colour map); the same tensorboard tags.
 Then a rerun through the CLI (main([...], device="cpu") with --post_filter,
 checkpoints under <clip>/models/) recomputes no finished stage and filters
-again, and --mask_rcnn_weights
-raises NotImplementedError before the mask stage's handler can swallow it.
+again. With --mask_rcnn_weights the CLI runs the Mask R-CNN stage (the
+same masks as the stage alone, its stats as spans), falls back to motion
+segmentation when the file does not exist, and raises an unreadable
+checkpoint's error out of pipeline() rather than the mask stage's handler
+swallowing it.
 """
 
 import functools
@@ -58,7 +61,7 @@ from robust_cvd_tpu.models import midas as jm
 from robust_cvd_tpu.models import raft as jr
 from robust_cvd_tpu_torch import config as tconfig
 from robust_cvd_tpu_torch.io import raw
-from robust_cvd_tpu_torch.io.store import VideoStore, load_png_color, load_png_gray
+from robust_cvd_tpu_torch.io.store import VideoStore, frame_name, load_png_color, load_png_gray
 from robust_cvd_tpu_torch.io.video_dat import load_video_dat
 from robust_cvd_tpu_torch.main import main
 from robust_cvd_tpu_torch.models import midas as tm
@@ -339,20 +342,80 @@ def test_cli_rerun_skips_finished_stages(runs, monkeypatch):
 
 
 def test_mask_rcnn_weights_raise_outside_the_mask_handler(runs, tmp_path):
-    """Existing Mask R-CNN weights: NotImplementedError out of pipeline(),
-    not a "mask generation failed; continuing" line and a run without
-    masks."""
+    """An unreadable Mask R-CNN checkpoint (an empty pickle): its load error
+    out of pipeline(), not a "mask generation failed; continuing" line and
+    a run without masks; the stage alone raises it too."""
     weights = tmp_path / "model_final.pkl"
     weights.write_bytes(b"")
     cfg = tconfig.parse_config(["--path", runs["tbase"], *ARGV,
                                 "--mask_rcnn_weights", str(weights)])
     proc = tproc_mod.DatasetProcessor(cfg, models=runs["tproc"].models, device="cpu")
-    with pytest.raises(NotImplementedError, match="Mask R-CNN"):
+    with pytest.raises(EOFError):
         proc.process()
     from robust_cvd_tpu_torch.pipeline.masks import compute_dynamic_masks_rcnn
 
-    with pytest.raises(NotImplementedError, match="Mask R-CNN"):
-        compute_dynamic_masks_rcnn(runs["tstore"], str(weights))
+    with pytest.raises(EOFError):
+        compute_dynamic_masks_rcnn(runs["tstore"], str(weights), device="cpu")
+
+
+def _cli_clip(runs, base, monkeypatch):
+    """A copy of the finished port tree without its dynamic masks, with the
+    CLI's checkpoints under <clip>/models/ and its nets narrowed to the
+    test's sizes."""
+    shutil.copytree(runs["tbase"], base)
+    shutil.rmtree(pjoin(base, "dynamic_mask"))
+    tnet, traft = _torch_models(runs["mv"], runs["rv"])
+    os.makedirs(pjoin(base, "models"), exist_ok=True)
+    torch.save(tnet.state_dict(), pjoin(base, "models", "midas_v21-f6b98070.pt"))
+    torch.save(traft.state_dict(), pjoin(base, "models", "raft-things.pth"))
+    monkeypatch.setattr(tm, "MidasNet", functools.partial(tm.MidasNet, **SMALL_MIDAS))
+    monkeypatch.setattr(tr, "RAFT", functools.partial(tr.RAFT, iters=2, dtype=torch.float32))
+    monkeypatch.setattr(tproc_mod, "FLOW_MAX_SIZE", 64)
+    monkeypatch.setattr(tproc_mod, "FLOW_ALIGN", 8)
+
+
+def _dynamic_masks(base):
+    return np.stack([load_png_gray(pjoin(base, "dynamic_mask", frame_name(i, ".png")))
+                     for i in range(N)])
+
+
+def test_cli_runs_mask_rcnn(runs, tmp_path, monkeypatch):
+    """main([... "--mask_rcnn_weights", pkl], device="cpu") with a seeded
+    detectron2-layout checkpoint (chip_smoke.mask_rcnn_checkpoint, heads
+    shaped so that 3 proposals of the first frame score person) at a test
+    size of 64: the same dynamic_mask/ as compute_dynamic_masks_rcnn on
+    another copy, some of it dynamic, and the stage's stats as
+    compute_dynamic_mask/<name> spans."""
+    import chip_smoke
+    from robust_cvd_tpu_torch.pipeline import masks
+
+    base, other = str(tmp_path / "cli"), str(tmp_path / "stage")
+    _cli_clip(runs, base, monkeypatch)
+    shutil.copytree(base, other)
+    pkl = chip_smoke.mask_rcnn_checkpoint(base, 0, device="cpu", keep=3, test_size=64)
+    monkeypatch.setattr(masks, "compute_dynamic_masks_rcnn", functools.partial(
+        masks.compute_dynamic_masks_rcnn, test_size=64))
+    proc = main(["--path", base, *ARGV, "--mask_rcnn_weights", pkl], device="cpu")
+    names = [sp["name"] for sp in proc.tracer.spans]
+    # the 4 frames run in one pass: no steady state
+    for stat in ("load_convert_s", "weights_h2d_s", "first_dispatch_s"):
+        assert f"compute_dynamic_mask/{stat}" in names
+    masks.compute_dynamic_masks_rcnn(VideoStore.open(other), pkl, device="cpu")
+    got = _dynamic_masks(base)
+    np.testing.assert_array_equal(got, _dynamic_masks(other))
+    assert (got == 0).any() and (got == 255).any()
+
+
+def test_cli_missing_mask_rcnn_weights_fall_back(runs, tmp_path, monkeypatch, capsys):
+    """A --mask_rcnn_weights file that does not exist: the JAX package's
+    fallback line, then motion segmentation (the masks of the first run)."""
+    base = str(tmp_path / "cli")
+    _cli_clip(runs, base, monkeypatch)
+    missing = str(tmp_path / "none.pkl")
+    main(["--path", base, *ARGV, "--mask_rcnn_weights", missing], device="cpu")
+    assert (f"--mask_rcnn_weights {missing!r} not found; falling back to motion "
+            "segmentation") in capsys.readouterr().out
+    np.testing.assert_array_equal(_dynamic_masks(base), _dynamic_masks(runs["tbase"]))
 
 
 def test_stage_tracer_matches_jax(tmp_path):
