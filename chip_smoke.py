@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (robust_cvd_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--frames 100] [--epochs 10] [--seed 0]
+    python3 chip_smoke.py [--frames 100] [--epochs 3] [--seed 0]
 
 Phases, each of which raises on failure (exit code 1):
 
@@ -53,7 +53,7 @@ Phases, each of which raises on failure (exit code 1):
 6. fine-tune path: DatasetProcessor(...).fine_tune(store, depth) on the same
    clip (the cached flow_constraints.dat is reused) with the full-width
    MiDaS-v2 and the default FineTuneParams and LossParams but 2 epochs
-   (the pipeline phase runs the 10): the cold solve, the epochs of
+   (the pipeline phase runs 3): the cold solve, the epochs of
    training (one Adam kernel launch per step), a depth refresh and a warm
    re-solve after each epoch, the fine-tuned depth stream and video.dat. Checks finite losses, Adam
    launches equal to the train steps with none skipped, the cold solve
@@ -88,7 +88,8 @@ Phases, each of which raises on failure (exit code 1):
    device idle share.
 12. pipeline: the whole schedule through the port's CLI,
    robust_cvd_tpu_torch.main.main(["--path", clip]) with every default but
-   --num_epochs (--epochs, 10 by default), on a third clip of
+   --num_epochs (--epochs, 3 by default: PIPELINE_EPOCHS says why), on a
+   third clip of
    panning_frames given as color_full PNGs only (no frames.txt), with
    seeded full-width MiDaS-v2 and RAFT checkpoints under <clip>/models/
    (RAFT's last flow-head convolution zeroed: pipeline_checkpoints says
@@ -151,11 +152,28 @@ Phases, each of which raises on failure (exit code 1):
    NMS, ROIAlign, the heads, detection and the paste; the idle share).
    No CUDA kernel of the repo is on this path (models/mask_rcnn.py is
    plain PyTorch, as its JAX counterpart reaches no pallas_call).
+20. keypoints (after the RAFT check): ops/homography.py's detect_keypoints
+   (one corner kernel launch) and warp_perspective on one panning frame,
+   card vs CPU (keypoints_check).
+21. mesh: the whole CLI at 1 epoch on a data mesh of MESH_RANKS spawned
+   ranks that share the card over gloo (NCCL refuses two ranks on one
+   card), each main(["--path", clip, "--num_epochs", "1", "--post_filter",
+   "true"]) on a copy of the inputs of the pipeline clip's first
+   MESH_CLIP_FRAMES frames (mesh_phase, mesh_rank):
+   the result tree; the initial depth, flows and masks against the pipeline
+   phase's one-process files (MESH_DEPTH_TOL, RAFT_TOL, MESH_MASK_SHARE);
+   replicas bitwise equal (one digest of parameters and BatchNorm
+   buffers); each rank's Adam launches equal to its train steps with none
+   skipped, the corner kernel in every rank's flow chunks. Prints each
+   rank's epoch (seconds, steps, ms a step, the collectives' share) beside
+   the pipeline phase's epochs. Then a 1-rank nccl group's all_reduce on
+   the card, and with two or more cards the CLI over nccl on one rank a
+   card (a line says when it was not run).
 
 Prints per-stage seconds, a {"kernels": [...]} line (each kernel's entry
-carries its launches by path; the corner kernel's, under "flow_path", its
-numbers at the registration's shape), the nvidia-smi line, and as its last
-line {"ok": true, "device": {...}}.
+carries its launches by path, the mesh's also by rank; the corner kernel's,
+under "flow_path", its numbers at the registration's shape), the
+nvidia-smi line, and as its last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1162,6 +1180,76 @@ PROCESSOR_SOLVER_FRAMES = 8  # the solver ops' clip, at full width
 # the 8-frame clip), and the default schedule took 133 s there on the H100.
 PROCESSOR_SOLVER_OPTIONS = dict(num_steps=2, lm_max_outer=6)
 FILTER_TOL = 1e-5  # card vs CPU filters, relative to the largest depth
+# A weighted median is discontinuous where a pixel's cumulative weight ties
+# with half its total: the card's and the CPU's last-bit differences in the
+# weights (exp, the summation order) can then pick neighbouring samples, up
+# to 1e-3 of the depth apart. The card's median is held to the CPU's samples
+# as any weighted median under weights moved by up to MEDIAN_TIE of their
+# total; everywhere else that bracket is the CPU's own sample.
+MEDIAN_TIE = 1e-5
+
+
+def median_bracket(zs, wgt, tie: float = MEDIAN_TIE):
+    """(lo, hi, ties): per pixel, the least and greatest weighted median over
+    dim 0 of samples `zs` under weights `wgt` moved by up to `tie` of their
+    total (the first sorted sample whose cumulative weight reaches the half
+    total, as filters._weighted_median, minus and plus `tie` of the total),
+    and the number of pixels where the two differ."""
+    import torch
+
+    order = torch.argsort(zs, dim=0, stable=True)
+    z = torch.gather(zs, 0, order)
+    cum = torch.cumsum(torch.gather(wgt, 0, order).double(), dim=0)
+    total = cum[-1]
+
+    def first(level):
+        pick = torch.argmax((cum >= level[None]).to(torch.uint8), dim=0)
+        return torch.gather(z, 0, pick[None])[0]
+
+    lo, hi = first(total * (0.5 - tie)), first(total * (0.5 + tie))
+    return lo, hi, int((lo != hi).sum())
+
+
+def filters_card_vs_cpu(store, src: str, m: int, params, device: str = "cuda") -> None:
+    """PROCESSOR_FILTERS on the first m frames of `store`'s stream `src`, on
+    `device` and on the CPU: within FILTER_TOL of the largest depth, the
+    median within FILTER_TOL of the CPU samples' median bracket (MEDIAN_TIE
+    says why). `params(**kw)` makes the ProcessorParams."""
+    from robust_cvd_tpu_torch.ops import filters
+    from robust_cvd_tpu_torch.pipeline.processor import Processor
+
+    outs = {}
+    for dev in (device, "cpu"):
+        view = first_frames(store, m)
+        vproc = Processor(view, device=dev)  # the CPU's is kept for its median samples
+        for stream, kw in PROCESSOR_FILTERS:
+            name = f"cmp_{dev}_{stream}"
+            vproc.process(params(source_depth_stream=src, depth_stream=name, **kw))
+            outs[dev, stream] = view.load_depth_stream(name)
+    worst = 0.0
+    for stream, kw in PROCESSOR_FILTERS:
+        a, b = outs[device, stream], outs["cpu", stream]
+        scale = np.abs(b).max()
+        err = float(np.abs(a - b).max() / scale)
+        note = ""
+        if kw.get("median"):  # held to the CPU's samples' median bracket
+            args, fkw = vproc.flow_guided_filter_inputs(view.load_depth_stream(src),
+                                                        params(**kw))
+            fkw.pop("median")
+            lo, hi, ties = median_bracket(*filters.flow_guided_samples(*args, **fkw))
+            lo, hi = lo.numpy(), hi.numpy()
+            if not (np.all(lo <= b) and np.all(b <= hi)):
+                raise AssertionError(f"{stream}: the CPU's median lies outside its own bracket")
+            off = np.maximum(lo - a, a - hi).clip(min=0)
+            note = (f" from the median bracket; against the CPU's pick {err:.3e}, "
+                    f"{int((np.abs(a - b) > FILTER_TOL * scale).sum())} pixels off it, "
+                    f"{ties} pixels whose median moves with {MEDIAN_TIE:g} of the weight")
+            err = float(off.max() / scale)
+        worst = max(worst, err)
+        print(f"processor {stream}, card vs CPU on {m} frames: relative max|err| {err:.3e} "
+              f"(tolerance {FILTER_TOL:g}){note}")
+    if not worst <= FILTER_TOL:
+        raise AssertionError("a filter op on the card disagrees with the CPU")
 
 
 def processor_phase(base: str, solver_params, seed: int, device: str = "cuda",
@@ -1174,7 +1262,8 @@ def processor_phase(base: str, solver_params, seed: int, device: str = "cuda",
       mean, median and far-connections modes) on the whole clip: finite
       output that moved; then each filter on the clip's first
       PROCESSOR_CPU_FRAMES frames on the card and on the CPU, within
-      FILTER_TOL of the largest depth;
+      FILTER_TOL of the largest depth (the median within FILTER_TOL of the
+      CPU samples' median bracket: MEDIAN_TIE says why);
     - compute_tracks: one corner-kernel launch, and every kept track moves
       SHIFT px a frame (within 0.5 px);
     - the constraint and solver ops on a PROCESSOR_SOLVER_FRAMES-frame clip
@@ -1239,24 +1328,7 @@ def processor_phase(base: str, solver_params, seed: int, device: str = "cuda",
             raise AssertionError(f"the {stream} filter gave non-finite or unchanged depth")
 
     # the same filters on the first frames, card and CPU
-    m = min(PROCESSOR_CPU_FRAMES, n)
-    outs = {}
-    for dev in (device, "cpu"):
-        view = first_frames(store, m)
-        vproc = Processor(view, device=dev)
-        for stream, kw in PROCESSOR_FILTERS:
-            name = f"cmp_{dev}_{stream}"
-            vproc.process(params(source_depth_stream=src, depth_stream=name, **kw))
-            outs[dev, stream] = view.load_depth_stream(name)
-    worst = 0.0
-    for stream, _ in PROCESSOR_FILTERS:
-        a, b = outs[device, stream], outs["cpu", stream]
-        err = float(np.abs(a - b).max() / np.abs(b).max())
-        worst = max(worst, err)
-        print(f"processor {stream}, card vs CPU on {m} frames: relative max|err| {err:.3e} "
-              f"(tolerance {FILTER_TOL:g})")
-    if not worst <= FILTER_TOL:
-        raise AssertionError("a filter op on the card disagrees with the CPU")
+    filters_card_vs_cpu(store, src, min(PROCESSOR_CPU_FRAMES, n), params, device)
 
     corner.corner_min_eigenval.launches = 0
     tracks = run("compute_tracks", params(op="COMPUTE_TRACKS"))
@@ -1761,6 +1833,13 @@ PIPELINE_SPANS = ("extract_frames", "downscale_frames", "load_models", "compute_
                   "fine_tune/refresh_s", "fine_tune/persist_io_s", "fine_tune/post_filter_s")
 POST_FILTER_CPU_FRAMES = 8  # the filtered frames checked against the CPU
 POST_FILTER_TOL = 1e-4  # their disparity, card vs CPU, relative
+
+
+# The pipeline phase's epochs, cut from the default 10: the script, host-bound
+# for most of its time, took 693-1003 s on one H100 with 10, near the
+# 1200 s limit; each epoch more costs 12-17 s (a train epoch and a warm
+# re-solve).
+PIPELINE_EPOCHS = 3
 
 
 def pipeline_phase(base: str, n_frames: int, seed: int, epochs: int, device: str = "cuda",
@@ -2291,13 +2370,320 @@ def mask_rcnn_profile(net, frames, down_hw, test_size: int = 800) -> None:
         print(f"mask_rcnn profile top: {t / 1e3:8.3f} ms {t / total:7.2%}  {name[:110]}")
 
 
+# The mesh phase: the whole CLI on a data mesh of MESH_RANKS ranks.
+MESH_RANKS = 2
+MESH_JOIN_S = 900  # the ranks' time limit
+MESH_MASK_SHARE = 1e-3  # mask pixels that may differ from the one-process run's
+# The initial depth against the one-process run's, of max|ref|: MiDaS runs
+# cuDNN convolutions in TF32 (10 mantissa bits, 2^-10 = 9.8e-4), and a
+# frame's depth moved by 3.4e-4 of the largest when its chunk of 16 held
+# other frames (H100, 100 frames over 2 ranks).
+MESH_DEPTH_TOL = 1e-3
+# The mesh phase's clip: the first frames of the pipeline clip. Cut from
+# 100 (159.7 s for the ranks on an H100 at 1 epoch) to keep the script
+# within 950 s; tools/mesh_cuda.py runs all of them.
+MESH_CLIP_FRAMES = 50
+
+
+def mesh_rank(rank: int, size: int, store: str, clip: str, out_dir: str, epochs: int,
+              backend, device: str, argv, small_nets: bool) -> None:
+    """One rank of the mesh phase, in a process of its own: init_mesh over
+    the file:// `store`, then the CLI, main(["--path", clip, "--num_epochs",
+    epochs, "--post_filter", "true", *argv], device) on the clip every rank
+    shares, with the kernels' launch counts set to 0 just before it. Writes
+    mesh_rank<r>.json to `out_dir` (seconds, launches, steps, epochs, the
+    tuner's and the mesh's stats, a digest of the flat parameters and the
+    BatchNorm buffers) and its output to mesh_rank<r>.log. small_nets:
+    the CPU rehearsal's nets (the small MiDaS net, RAFT float32 with 2
+    iterations)."""
+    import contextlib
+
+    with open(os.path.join(out_dir, f"mesh_rank{rank}.log"), "w", buffering=1) as log, \
+            contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        _mesh_rank(rank, size, store, clip, out_dir, epochs, backend, device, argv, small_nets)
+
+
+def _mesh_rank(rank, size, store, clip, out_dir, epochs, backend, device, argv, small_nets):
+    import functools
+    import hashlib
+
+    import torch
+
+    from robust_cvd_tpu_torch.main import main as cli_main
+    from robust_cvd_tpu_torch.models import midas, raft
+    from robust_cvd_tpu_torch.ops import adam, corner
+    from robust_cvd_tpu_torch.parallel.mesh import destroy_mesh, init_mesh
+
+    if small_nets:
+        torch.set_num_threads(1)
+        midas.MidasNet = functools.partial(midas.MidasNet, features=32,
+                                           backbone_layers=(1, 1, 1, 1))
+        raft.RAFT = functools.partial(raft.RAFT, iters=2, dtype=torch.float32)
+    mesh = init_mesh(backend=backend, device=device, init_method=f"file://{store}", rank=rank,
+                     world_size=size)
+    try:
+        corner.corner_min_eigenval.launches = 0
+        adam.adam_update.launches = 0
+        t0 = time.perf_counter()
+        proc = cli_main(["--path", clip, "--num_epochs", str(epochs), "--post_filter", "true",
+                         *argv], device=str(mesh.device))
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        seconds = time.perf_counter() - t0
+        tuner = proc.tuner
+        digest = hashlib.sha256(tuner.optimizer.flat.cpu().numpy().tobytes())
+        for b in tuner.net.buffers():
+            digest.update(b.cpu().numpy().tobytes())
+        with open(os.path.join(out_dir, f"mesh_rank{rank}.json"), "w") as f:
+            json.dump({
+                "rank": rank, "device": str(mesh.device), "seconds": seconds,
+                "corner": corner.corner_min_eigenval.launches,
+                "adam": adam.adam_update.launches, "history": tuner.history,
+                "stats": tuner.stats, "stages": proc.tracer.summary(),
+                "mesh": mesh.stats, "digest": digest.hexdigest(),
+                "out_dir": tuner.out_dir,
+            }, f)
+    finally:
+        destroy_mesh()
+
+
+def run_mesh(base: str, size: int, epochs: int, backend, device, argv=(), small_nets=False):
+    """The mesh phase's ranks, `size` processes spawned together, each
+    running mesh_rank on the clip `base`; waits for all of them (a failed
+    rank raises and the others are stopped; past MESH_JOIN_S all are
+    killed). Returns their reports and the seconds of the whole run."""
+    import torch.multiprocessing as mp
+
+    out_dir = base + "_reports"
+    os.makedirs(out_dir)
+    store = os.path.join(out_dir, "store")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        mesh_rank, args=(size, store, base, out_dir, epochs, backend, device, list(argv),
+                         small_nets),
+        nprocs=size, join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_JOIN_S
+    try:
+        while not ctx.join(max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the mesh's ranks did not finish in {MESH_JOIN_S} s")
+    except BaseException:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        for r in range(size):
+            log = os.path.join(out_dir, f"mesh_rank{r}.log")
+            if os.path.exists(log):
+                print(f"--- mesh rank {r}, the end of its output:")
+                print(open(log).read()[-3000:])
+        raise
+    seconds = time.perf_counter() - t0
+    reports = [json.load(open(os.path.join(out_dir, f"mesh_rank{r}.json"))) for r in range(size)]
+    return reports, seconds
+
+
+def mesh_clip(src: str, base: str, n_frames: int) -> None:
+    """A copy of a pipeline clip's inputs: the first n_frames of color_full
+    and the MiDaS and RAFT checkpoints."""
+    import shutil
+
+    from robust_cvd_tpu_torch.io.store import frame_name
+
+    os.makedirs(os.path.join(base, "color_full"))
+    for i in range(n_frames):
+        name = frame_name(i, ".png")
+        shutil.copy(os.path.join(src, "color_full", name), os.path.join(base, "color_full", name))
+    os.makedirs(os.path.join(base, "models"))
+    for name in ("midas_v21-f6b98070.pt", "raft-things.pth"):
+        shutil.copy(os.path.join(src, "models", name), os.path.join(base, "models", name))
+
+
+def mesh_phase(single: str, base: str, n_frames: int, epochs: int, single_history=(),
+               device: str = "cuda", argv=(), small_nets: bool = False) -> dict:
+    """The whole CLI on a data mesh of MESH_RANKS ranks that share one card
+    (gloo: NCCL refuses two ranks on a card), on a copy of the inputs of the
+    first n_frames of the pipeline phase's clip `single` (run_mesh, epochs
+    epochs). Checks the result tree, the initial depth, flows and masks
+    against `single`'s files (its pairs of those frames)
+    (depth within MESH_DEPTH_TOL of max|ref|, flows within RAFT_TOL, masks
+    but MESH_MASK_SHARE of their pixels), replicas bitwise equal, each
+    rank's Adam launches equal to its train steps with none skipped, and the
+    corner kernel in every rank's flow chunks (rank 0 also builds the
+    constraints). Prints the seconds, each rank's epochs (s, steps, ms a
+    step, the collectives' share) beside the one-process run's
+    `single_history`. Then mesh_nccl_checks. Returns the launches by rank."""
+    from robust_cvd_tpu_torch.io import raw
+    from robust_cvd_tpu_torch.io.store import VideoStore, load_png_gray
+    from robust_cvd_tpu_torch.io.video_dat import load_video_dat
+
+    t_phase = time.perf_counter()
+    mesh_clip(single, base, n_frames)
+    reports, seconds = run_mesh(base, MESH_RANKS, epochs, "gloo", device, argv, small_nets)
+    print(f"mesh: {MESH_RANKS} ranks on {reports[0]['device']} over gloo, the CLI at {epochs} "
+          f"epoch(s): {seconds:.3f} s, {seconds / n_frames:.4f} s per clip frame")
+    for name, sec in reports[0]["stages"].items():
+        print(f"mesh rank 0 stage {name} {sec:.3f}")
+
+    store, ref = VideoStore.open(base), VideoStore.open(single)
+    listed = [tuple(e[:2]) for e in store.load_flow_list()]
+    if not set(listed) <= {tuple(e[:2]) for e in ref.load_flow_list()}:
+        raise AssertionError("the mesh's flow_list.json lists pairs one process has not")
+    n_pairs = len(listed)
+
+    def count(sub, ext):
+        d = os.path.join(base, sub)
+        return len([f for f in os.listdir(d) if f.endswith(ext)]) if os.path.isdir(d) else 0
+
+    for sub, ext, want in (("color_down", ".raw", n_frames), ("color_down_png", ".png", n_frames),
+                           ("color_flow", ".png", n_frames), ("depth_midas2/depth", ".raw", n_frames),
+                           ("dynamic_mask", ".png", n_frames), ("flow", ".raw", n_pairs),
+                           ("flow_mask", ".png", n_pairs)):
+        if count(sub, ext) != want:
+            raise AssertionError(f"mesh: {count(sub, ext)} files in {sub} for {want}")
+    streams = [s.name for s in load_video_dat(os.path.join(base, "video.dat")).depth_streams]
+    if streams[:1] != ["depth_midas2"] or streams[-2:] != ["fine_tuned", "fine_tuned_filtered"]:
+        raise AssertionError(f"mesh: video.dat streams {streams}")
+    depth_dir = os.path.join(reports[0]["out_dir"], "depth")
+    disp = [raw.load_raw_float32_image(os.path.join(depth_dir, f))
+            for f in sorted(os.listdir(depth_dir)) if f.endswith(".raw")]
+    if len(disp) != n_frames or not all(np.isfinite(d).all() for d in disp):
+        raise AssertionError(f"mesh: {len(disp)} fine-tuned depth frames, or non-finite ones")
+    for f in ("flow_constraints.dat", os.path.join(os.path.dirname(reports[0]["out_dir"]),
+                                                   "stage_timings.json")):
+        if not os.path.exists(os.path.join(base, f)):
+            raise AssertionError(f"mesh: no {f}")
+
+    d = store.load_depth_stream("depth_midas2")
+    d_ref = ref.load_depth_stream("depth_midas2")[:n_frames]
+    depth_err = float(np.abs(d - d_ref).max() / np.abs(d_ref).max())
+    depth_same = int((d == d_ref).reshape(n_frames, -1).all(1).sum())
+    flow_err, flow_tol, mask_diff, mask_px = 0.0, 0.0, 0, 0
+    for (i, j) in listed:
+        f, f_ref = store.load_flow(i, j), ref.load_flow(i, j)
+        flow_err = max(flow_err, float(np.abs(f - f_ref).max()))
+        flow_tol = max(flow_tol, RAFT_TOL[0] * float(np.abs(f_ref).max()) + RAFT_TOL[1])
+        name = f"mask_{i:06d}_{j:06d}.png"
+        m = load_png_gray(os.path.join(base, "flow_mask", name))
+        mask_diff += int((m != load_png_gray(os.path.join(single, "flow_mask", name))).sum())
+        mask_px += m.size
+    print(f"mesh vs one process: initial depth max|err| {depth_err:.3e} of max|ref| (tolerance "
+          f"{MESH_DEPTH_TOL:g}), {depth_same} of {n_frames} frames bit for bit; {n_pairs} flows max|err| {flow_err:.3e} px (tolerance "
+          f"{flow_tol:.3e}); masks differ in {mask_diff} of {mask_px} pixels (tolerance "
+          f"{MESH_MASK_SHARE:g} of them)")
+    if not (depth_err <= MESH_DEPTH_TOL and flow_err <= flow_tol
+            and mask_diff <= MESH_MASK_SHARE * mask_px):
+        raise AssertionError("the mesh's initial depth, flows or masks differ from one process's")
+
+    digests = {r["digest"] for r in reports}
+    if len(digests) != 1:
+        raise AssertionError("the mesh's replicas ended with different parameters or statistics")
+    import torch
+
+    from robust_cvd_tpu_torch.parallel.mesh import Mesh
+
+    cpu = torch.device("cpu")
+    chunks = [-(-len(Mesh(r, MESH_RANKS, cpu).share(range(n_pairs))) // 16)
+              for r in range(MESH_RANKS)]
+    for r, rep in enumerate(reports):
+        steps = sum(h["steps"] for h in rep["history"])
+        skipped = sum(h["skipped"] for h in rep["history"])
+        want_corner = chunks[r] + (r == 0) if device == "cuda" else 0
+        want_adam = steps if device == "cuda" else 0
+        print(f"mesh rank {r} launches: corner_min_eigenval {rep['corner']} ({chunks[r]} flow "
+              f"chunks{' and the constraint build' if r == 0 else ''}), adam {rep['adam']} for "
+              f"{steps} train steps, {skipped} skipped; {rep['mesh']['collectives']} "
+              f"collectives, {rep['mesh']['collective_s']:.3f} s in them")
+        if rep["corner"] < want_corner or rep["adam"] != want_adam or skipped or not steps:
+            raise AssertionError(f"mesh rank {r} missed a kernel launch or skipped a step")
+        for h in rep["history"]:
+            print(f"mesh rank {r} epoch {h['epoch']}: {h['sec']:.3f} s, {h['steps']} steps, "
+                  f"{1e3 * h['sec'] / h['steps']:.2f} ms a step, collectives "
+                  f"{h['collective_s']:.3f} s ({h['collective_s'] / h['sec']:.1%} of the epoch), "
+                  f"loss {h['loss']:.6f}")
+    for h in single_history:
+        print(f"one process epoch {h['epoch']}: {h['sec']:.3f} s, {h['steps']} steps, "
+              f"{1e3 * h['sec'] / h['steps']:.2f} ms a step, loss {h['loss']:.6f}")
+    print(f"mesh replicas: one digest of parameters and BatchNorm buffers "
+          f"({next(iter(digests))[:16]}) on {MESH_RANKS} ranks")
+    mesh_nccl_checks(single, os.path.dirname(base), n_frames, epochs, device, argv, small_nets)
+    print(f"stage mesh_phase_s {time.perf_counter() - t_phase:.3f}")
+    return {"corner": [r["corner"] for r in reports], "adam": [r["adam"] for r in reports]}
+
+
+KEYPOINT_SHARE = 0.95  # the CPU's keypoints the card's detect_keypoints must find
+
+
+def keypoints_check(seed: int) -> None:
+    """ops/homography.py's single-image helpers on the card against the
+    CPU, on one panning frame at 224x384: detect_keypoints (the corner
+    kernel, one launch) finds at least KEYPOINT_SHARE of the CPU's
+    keypoints (the kernel's response is within 1e-4 of the plain one's, so
+    near-equal corners may trade places), warp_perspective within 1e-5 of
+    max|ref|."""
+    import torch
+
+    from robust_cvd_tpu_torch.ops import corner, homography as hg
+
+    frame = panning_frames(1, seed)[0]
+    gray = frame.mean(-1)
+    corner.corner_min_eigenval.launches = 0
+    card = hg.detect_keypoints(torch.from_numpy(gray).cuda())
+    launches = corner.corner_min_eigenval.launches
+    cpu = hg.detect_keypoints(gray)
+    share = len({tuple(k) for k in card.tolist()} & {tuple(k) for k in cpu.tolist()}) / len(cpu)
+    H = np.array([[1.02, 0.01, -1.5], [-0.015, 0.99, 2.0], [1e-4, -5e-5, 1.0]], np.float32)
+    w_card = hg.warp_perspective(torch.from_numpy(frame).cuda(), H).cpu()
+    w_cpu = hg.warp_perspective(frame, H)
+    err = _rel_err(w_card, w_cpu)
+    print(f"keypoints card vs CPU: {len(card)} and {len(cpu)} keypoints, {share:.4f} of the "
+          f"CPU's found (at least {KEYPOINT_SHARE}), {launches} corner launch; "
+          f"warp_perspective max|err| {err:.3e} of max|ref| (tolerance 1e-5)")
+    if launches != 1 or share < KEYPOINT_SHARE or not err <= 1e-5:
+        raise AssertionError("detect_keypoints or warp_perspective on the card disagrees")
+
+
+def mesh_nccl_checks(single: str, base: str, n_frames: int, epochs: int, device: str, argv,
+                     small_nets: bool) -> None:
+    """nccl on the card: a 1-rank group's all_reduce; with two or more
+    cards, the whole CLI on one rank a card (run_mesh over nccl) and its
+    replicas bitwise equal. Nothing on the CPU."""
+    import torch
+
+    from robust_cvd_tpu_torch.parallel.mesh import destroy_mesh, init_mesh
+
+    if device != "cuda":
+        return
+    mesh = init_mesh(backend="nccl", device="cuda:0",
+                     init_method=f"file://{os.path.join(base, 'nccl_store')}", rank=0,
+                     world_size=1)
+    try:
+        t = torch.arange(5, dtype=torch.float32, device="cuda:0")
+        mesh.all_reduce_mean_(t)
+        torch.cuda.synchronize()
+        if not torch.equal(t.cpu(), torch.arange(5, dtype=torch.float32)):
+            raise AssertionError("a 1-rank nccl all_reduce changed its tensor")
+    finally:
+        destroy_mesh()
+    print("mesh nccl: a 1-rank group's all_reduce on cuda:0 gave its tensor back")
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"mesh over nccl with one rank a card: not run ({cards} card)")
+        return
+    clip = os.path.join(base, "nccl_clip")
+    mesh_clip(single, clip, n_frames)
+    reports, seconds = run_mesh(clip, cards, epochs, None, None, argv, small_nets)
+    if len({r["digest"] for r in reports}) != 1:
+        raise AssertionError("the nccl mesh's replicas ended with different parameters")
+    print(f"mesh over nccl: {cards} ranks, one a card, {seconds:.3f} s, replicas equal")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=100,
                     help="clip length (100 = the bench clip)")
-    ap.add_argument("--epochs", type=int, default=10,
-                    help="the pipeline phase's fine-tune epochs (10 = the default "
-                         "FineTuneParams); the fine-tune phase runs at most 2")
+    ap.add_argument("--epochs", type=int, default=PIPELINE_EPOCHS,
+                    help=f"the pipeline phase's fine-tune epochs ({PIPELINE_EPOCHS}, cut from "
+                         "the default FineTuneParams' 10); the fine-tune phase runs at most 2")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -2313,7 +2699,8 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     print(f"frames: {args.frames}" + (" (the bench clip length)" if args.frames == 100 else " (cut)"))
-    print(f"epochs: {args.epochs}" + (" (the default)" if args.epochs == 10 else " (cut from 10)"))
+    print(f"epochs: {args.epochs}" + (" (the default FineTuneParams')" if args.epochs == 10
+                                      else " (cut from the default FineTuneParams' 10)"))
     pose_frames = min(args.frames, POSE_CLIP_FRAMES)
     print(f"pose clip frames: {pose_frames}")
     build_kernels()
@@ -2327,6 +2714,7 @@ def main() -> int:
     step_phase(args.seed)
     eval_check(args.seed)
     raft_device_check(args.seed)
+    keypoints_check(args.seed)
     launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_clip_") as base:
         launches["pose"], depth, net = path_phase(base, pose_frames, args.seed)
@@ -2359,6 +2747,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_") as base:
         pipe, proc = pipeline_phase(os.path.join(base, "clip"), args.frames, args.seed,
                                     args.epochs)
+        single_history = proc.tuner.history
         post_filter_profile(proc)
         del proc
         torch.cuda.empty_cache()
@@ -2371,14 +2760,19 @@ def main() -> int:
         mask_rcnn_profile(rcnn_net, rcnn_store.load_color_full(),
                           rcnn_store.load_color_down().shape[1:3])
         del rcnn_net
+        torch.cuda.empty_cache()
         print(f"stage mask_rcnn_phase_s {time.perf_counter() - t0:.3f}")
+        mesh = mesh_phase(clip, os.path.join(base, "mesh", "clip"),
+                          min(args.frames, MESH_CLIP_FRAMES), 1, single_history)
     launches["pipeline"] = pipe["corner"]
+    launches["mesh"] = sum(mesh["corner"])
     corner_k["launches"] = sum(launches.values())
-    corner_k["launches_by_path"] = launches
+    corner_k["launches_by_path"] = dict(launches, mesh_by_rank=mesh["corner"])
     adam_k = adam_entries["adam"]
     adam_k["launches_by_path"] = {"fine_tune": adam_fine_tune, "colmap": adam_colmap,
-                                  "pipeline": pipe["adam"]}
-    adam_k["launches"] = adam_fine_tune + adam_colmap + pipe["adam"]
+                                  "pipeline": pipe["adam"], "mesh": sum(mesh["adam"]),
+                                  "mesh_by_rank": mesh["adam"]}
+    adam_k["launches"] = adam_fine_tune + adam_colmap + pipe["adam"] + sum(mesh["adam"])
     for name, count in adam_modes.items():
         if count < 1:
             raise AssertionError(f"the Adam kernel's {name} mode was not launched on its path")

@@ -20,7 +20,10 @@ until `commit_batch_stats` applies Flax's update, running = 0.9 running +
 fold in the unbiased one) and only where the step's guard flag is set.
 Within `per_slice_batch_stats(net, g)` a train-mode batch of g equal
 slices normalises each slice with its own statistics (the per-pair eval,
-which the JAX package runs one pair at a time).
+which the JAX package runs one pair at a time). Within
+`global_batch_stats(net, mesh)` train mode takes its statistics over the
+batches of every rank of a data mesh (parallel/mesh.py), as the JAX
+package's jit does over a sharded batch.
 """
 
 from __future__ import annotations
@@ -60,6 +63,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     # > 1: train mode normalises each of this many equal slices of the batch
     # with its own statistics and records none (see per_slice_batch_stats)
     stat_slices = 1
+    # a parallel.mesh.Mesh: train mode takes the global batch's statistics
+    # (see global_batch_stats)
+    mesh = None
 
     def forward(self, x):
         if not self.training:
@@ -77,11 +83,31 @@ class BatchNorm2d(nn.BatchNorm2d):
             y = F.batch_norm(xs, None, None, self.weight.repeat(g), self.bias.repeat(g),
                              True, 0.0, self.eps)
             return y.reshape(n // g, g, c, h, w).transpose(0, 1).reshape(n, c, h, w)
+        if self.mesh is not None:
+            return self._global_forward(x)
         mean = x.new_zeros(self.num_features)
         var = x.new_zeros(self.num_features)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
         n = x.numel() // self.num_features
         self.batch_stats = (mean, var * ((n - 1) / n))
+        return y
+
+    def _global_forward(self, x):
+        """Train mode over the mesh's global batch: one differentiable
+        all-reduce of the per-channel sums of x and x^2 and the element
+        count, then Flax's statistics, mean E[x] and biased variance
+        max(E[x^2] - E[x]^2, 0). The backward sums each rank's gradient of
+        the statistics over the ranks, so the gradients are those of the
+        global batch's loss."""
+        c = self.num_features
+        sums = torch.cat([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3)),
+                          x.new_full((1,), x.numel() // c)])
+        sums = self.mesh.all_reduce_sum(sums)
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c : 2 * c] / sums[-1] - mean * mean, min=0.0)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        self.batch_stats = (mean.detach(), var.detach())
         return y
 
 
@@ -103,6 +129,20 @@ def per_slice_batch_stats(net: nn.Module, slices: int):
         for m in layers:
             m.stat_slices = 1
             m.batch_stats = None
+
+
+@contextmanager
+def global_batch_stats(net: nn.Module, mesh):
+    """Within the block, a train-mode forward takes its BatchNorm statistics
+    over the batches of every rank of `mesh` (nothing changes for None)."""
+    layers = batch_norms(net) if mesh is not None else []
+    for m in layers:
+        m.mesh = mesh
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.mesh = None
 
 
 def commit_batch_stats(net: nn.Module, ok: torch.Tensor) -> None:

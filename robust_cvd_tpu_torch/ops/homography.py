@@ -18,10 +18,14 @@ The host numpy DLT-RANSAC (`find_homography_ransac`, with `_dlt` and
 `_apply_h_np`) is a copy of the JAX package's, for the motion
 segmentation of `pipeline/masks.py`.
 
+The JAX package's single-image keypoint helpers, which nothing in either
+package calls: `detect_keypoints` (the corner response through
+ops/corner.py, the Hopper kernel on a CUDA tensor, then the native
+greedy disk sampling), `patch_descriptors` and `match_ratio` (numpy
+copies) and `warp_perspective` (through ops/geometry.py's grid_sample).
+
 Not ported: the TPU's one-hot patch extraction (a gather here, as on the
-JAX package's CPU path). The numpy keypoint helpers (detect_keypoints,
-patch_descriptors, match_ratio, warp_perspective) come with the slice of
-their other users.
+JAX package's CPU path).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import native
 from ..device import float32_precision
 from .corner import corner_min_eigenval
 from .geometry import grid_sample, pixel_grid
@@ -40,6 +45,69 @@ _PATCH_RADIUS = 7
 _RANSAC_ITERS = 256
 _RANSAC_THRESH = 4.0
 _LOWE_RATIO = 0.75
+
+
+def detect_keypoints(gray, max_keypoints: int = 1024, separation: int = 8) -> np.ndarray:
+    """Corner keypoints of one gray image (H, W), strongest first, kept by
+    greedy disk separation -> (K, 2) float32 xy (numpy). A tensor's
+    corner response is computed on its device (the kernel on a card), a
+    numpy array's on the CPU; an 8-pixel border is dropped."""
+    g = torch.as_tensor(gray, dtype=torch.float32)
+    resp = corner_min_eigenval(g[None].contiguous())[0].cpu().numpy()
+    h, w = resp.shape
+    border = 8
+    resp[:border] = resp[-border:] = 0
+    resp[:, :border] = resp[:, -border:] = 0
+    ys, xs = np.nonzero(resp > 0)
+    order = np.argsort(-resp[ys, xs], kind="stable")
+    xs, ys = xs[order], ys[order]
+    keep = native.greedy_sample(xs, ys, w, h, separation)
+    xs, ys = xs[keep][:max_keypoints], ys[keep][:max_keypoints]
+    return np.stack([xs, ys], axis=-1).astype(np.float32)
+
+
+def patch_descriptors(gray: np.ndarray, kps: np.ndarray, radius: int = 7) -> np.ndarray:
+    """Zero-mean, unit-norm (2r+1)^2 gray patches around the keypoints
+    (K, 2), edge-padded -> (K, (2r+1)^2)."""
+    size = 2 * radius + 1
+    pad = np.pad(gray, radius, mode="edge")
+    out = np.empty((len(kps), size * size), np.float32)
+    for k, (x, y) in enumerate(kps.astype(int)):
+        patch = pad[y : y + size, x : x + size].reshape(-1)
+        patch = patch - patch.mean()
+        n = np.linalg.norm(patch)
+        out[k] = patch / n if n > 1e-8 else patch
+    return out
+
+
+def match_ratio(descA: np.ndarray, descB: np.ndarray, ratio: float = _LOWE_RATIO):
+    """Brute-force nearest neighbours with Lowe's ratio test (reference
+    :80-92) -> (M, 2) int32 index pairs. For unit-norm descriptors the L2
+    distance orders as the dot product does."""
+    if len(descA) < 2 or len(descB) < 2:
+        return np.zeros((0, 2), np.int32)
+    sim = descA @ descB.T
+    rows = np.arange(len(descA))
+    idx1 = np.argmax(sim, axis=1)
+    s1 = sim[rows, idx1]
+    sim[rows, idx1] = -np.inf
+    s2 = np.max(sim, axis=1)
+    d1 = np.sqrt(np.maximum(2.0 - 2.0 * s1, 0.0))
+    d2 = np.sqrt(np.maximum(2.0 - 2.0 * s2, 0.0))
+    good = d1 < ratio * d2
+    return np.stack([np.nonzero(good)[0], idx1[good]], axis=-1).astype(np.int32)
+
+
+def warp_perspective(image, H: np.ndarray, out_hw=None) -> torch.Tensor:
+    """Inverse-warp `image` (H, W, C) by the homography H (src -> dst):
+    dst(p) = src(H^-1 p), cv2.warpPerspective's semantics, with border
+    clamping; on the image tensor's device (numpy: the CPU)."""
+    img = torch.as_tensor(image, dtype=torch.float32)
+    h, w = out_hw or img.shape[:2]
+    Hinv = np.linalg.inv(np.asarray(H))
+    pix = pixel_grid((h, w)).numpy().reshape(1, -1, 2)
+    src = _apply_h_np(Hinv[None], pix)[0].reshape(h, w, 2)
+    return grid_sample(img, torch.as_tensor(src, dtype=torch.float32, device=img.device))
 
 
 def _topk_stable(x: torch.Tensor, k: int):

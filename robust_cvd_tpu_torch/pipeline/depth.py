@@ -7,6 +7,10 @@ depth_fine_tuning.py save_depth, 227-294). Writes
 Precision on the card: float32 weights and activations, cuDNN
 convolutions in TF32 and matrix products in full float32, set explicitly
 for the stage.
+
+On a data mesh (parallel/mesh.py) each rank infers its shard of the frames
+(padded with copies of frame 0, as the JAX package pads), every rank gets
+the whole clip's depth, and rank 0 saves the stream.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 from ..device import float32_precision, resolve_device
 from ..io.store import VideoStore
 from ..models.midas import depth_apply
+from ..parallel import mesh as pmesh
 
 
 def compute_initial_depth(
@@ -32,7 +37,10 @@ def compute_initial_depth(
     final frame, so the net sees the same batches as in the JAX package."""
     stream = f"depth_{model_type}"
     out_dir = store.depth_dir(stream)
-    if os.path.isdir(out_dir) and len(os.listdir(out_dir)) >= store.num_frames:
+    mesh = pmesh.pipeline_mesh()
+    done = os.path.isdir(out_dir) and len(os.listdir(out_dir)) >= store.num_frames
+    pmesh.barrier(mesh)  # every rank has looked before rank 0 writes
+    if done:
         return store.load_depth_stream(stream)
 
     device = resolve_device(device)
@@ -49,6 +57,8 @@ def compute_initial_depth(
     stats["weights_h2d_s"] = time.perf_counter() - t0
 
     images = store.load_color_down()
+    if mesh is not None:
+        images = images[mesh.shard(images.shape[0])]
     n = images.shape[0]
     outs = []
     with torch.no_grad(), float32_precision(cudnn_tf32=True):
@@ -65,7 +75,11 @@ def compute_initial_depth(
             key = "first_dispatch_s" if s == 0 else "steady_infer_s"
             stats[key] = stats.get(key, 0.0) + time.perf_counter() - t0
     depth = np.concatenate(outs, 0)
+    if mesh is not None:
+        depth = mesh.all_gather_leading(torch.from_numpy(depth), store.num_frames).numpy()
     t0 = time.perf_counter()
-    store.save_depth_stream(stream, depth)
+    if pmesh.is_writer(mesh):
+        store.save_depth_stream(stream, depth)
+    pmesh.barrier(mesh)
     stats["save_io_s"] = time.perf_counter() - t0
     return depth

@@ -32,6 +32,7 @@ from ..device import resolve_device
 from ..io.store import VideoStore, frame_name, save_png_gray
 from ..ops.epipolar import find_fundamental_ransac, sampson_distance
 from ..ops.homography import _apply_h_np, find_homography_ransac
+from ..parallel import mesh as pmesh
 
 # Frames a Mask R-CNN forward pass takes. The JAX package runs 2 (FB); on
 # an H100 at 800x1344 in bf16, 4 took 23.8 ms a frame in steady state
@@ -196,11 +197,13 @@ def compute_dynamic_masks_rcnn(
     Frames come from color_full (color_down where there is none) at the
     reference's test size (ResizeShortestEdge(test_size, max_size), padded
     to 32); the masks are downsampled to color_down's size, the result
-    tree's. RCNN_FRAMES_PER_PASS frames a forward pass, the JAX package's
-    single-device branch (it runs 2); its mesh branch (frames over the
-    devices) waits for the port's multi-GPU slice. The net computes in
-    bfloat16 on the card, as the JAX package runs, and in float32 on the
-    CPU. Skips frames already on disk. `stats` gets load_convert_s,
+    tree's. RCNN_FRAMES_PER_PASS frames a forward pass (the JAX package's
+    single-device branch runs 2). On a data mesh (parallel/mesh.py), where
+    at least as many frames are missing as there are ranks (the JAX
+    package's rule), each rank takes its contiguous share of them and
+    writes its own PNGs; otherwise every rank but 0 leaves it to rank 0.
+    The net computes in bfloat16 on the card, as the JAX package runs, and
+    in float32 on the CPU. Skips frames already on disk. `stats` gets load_convert_s,
     weights_h2d_s, first_dispatch_s (the first pass) and steady_infer_s
     (the rest). A bad checkpoint raises."""
     from ..models.mask_rcnn import MaskRCNN, load_checkpoint, load_weights_
@@ -228,6 +231,13 @@ def compute_dynamic_masks_rcnn(
     out_dir = pjoin(store.base_dir, "dynamic_mask")
     os.makedirs(out_dir, exist_ok=True)
     missing = [i for i in range(n) if not os.path.exists(pjoin(out_dir, frame_name(i, ".png")))]
+    mesh = pmesh.pipeline_mesh()
+    pmesh.barrier(mesh)  # every rank has looked before any writes
+    if mesh is not None:
+        if len(missing) >= mesh.size:
+            missing = mesh.share(missing)
+        elif mesh.rank > 0:
+            missing = []
     for s in range(0, len(missing), RCNN_FRAMES_PER_PASS):
         t0 = time.perf_counter()
         chunk = missing[s : s + RCNN_FRAMES_PER_PASS]
@@ -239,4 +249,5 @@ def compute_dynamic_masks_rcnn(
             save_png_gray(pjoin(out_dir, frame_name(i, ".png")), (~dyn).astype(np.uint8) * 255)
         key = "first_dispatch_s" if s == 0 else "steady_infer_s"
         stats[key] = stats.get(key, 0.0) + time.perf_counter() - t0
+    pmesh.barrier(mesh)
     return n > 0

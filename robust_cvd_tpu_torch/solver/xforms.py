@@ -49,6 +49,12 @@ class GridSpec(NamedTuple):
         return self.gx * self.gy * self.gz
 
 
+def init_depth_grid(num_frames: int, spec: GridSpec, device=None) -> torch.Tensor:
+    """Scale handles initialized to 1 (identity transform)."""
+    return torch.ones((num_frames, spec.gz, spec.gy, spec.gx), dtype=torch.float32,
+                      device=device)
+
+
 def init_spatial_grid(num_frames: int, gy: int, gx: int, device=None) -> torch.Tensor:
     """Warp handles initialized to 0 (identity warp)."""
     return torch.zeros((num_frames, gy, gx, 2), dtype=torch.float32, device=device)
@@ -178,6 +184,11 @@ def depth_param_map(grid: torch.Tensor, spec: GridSpec, shape, src_depth=None):
     (reference GridDepthXform::paramMap, .cpp:950-994)."""
     idx, w = grid_gather(spec, _pixel_ndc(shape, grid.device), src_depth)
     return eval_depth_scale(grid, idx, w)
+
+
+def apply_depth_grid(grid: torch.Tensor, spec: GridSpec, depth: torch.Tensor) -> torch.Tensor:
+    """A depth map (H, W) transformed by one frame's grid (gz, gy, gx)."""
+    return depth * depth_param_map(grid, spec, depth.shape, depth)
 
 
 def spatial_warp_map(grid: torch.Tensor, cubic: bool, shape):

@@ -39,8 +39,17 @@ one launch of the Adam kernel a step. With cfg.post_filter the newest
 depth stream is filtered after training (PoseOptimizer.filter_depth), and
 `stats["post_filter_s"]` holds its seconds.
 
-Not ported yet, raising NotImplementedError: the data-parallel mesh
-fine-tune (multi-GPU slice).
+On a data mesh (`mesh`, parallel/mesh.py: one process a rank) every rank
+holds the whole net, starts from rank 0's parameters and BatchNorm
+statistics, and takes the same steps: the JAX package's jit over a
+batch-sharded step. A step's global batch is batch_size pairs a rank
+(B = min(batch_size * n, P) // n * n), each rank takes its columns of the
+epoch's permutation, BatchNorm's train-mode statistics, the loss and the
+gradient are those of the global batch (models/midas.py
+global_batch_stats, FlatAdam.step), and the trailing partial batch runs
+whole on every rank. Rank 0 runs the pose solves and broadcasts the pose
+state; depth inference shards the frames and gathers them; only rank 0
+writes depth streams, video.dat, checkpoints, eval files and tensorboard.
 
 Tensorboard: with ft.save_tensorboard, the tuner logs the JAX package's
 scalars, histograms and images through torch.utils.tensorboard under
@@ -65,9 +74,11 @@ from ..camera import pose_params_to_camera, quat_to_matrix
 from ..config import LossParams, PipelineConfig
 from ..device import float32_precision, resolve_device
 from ..models.midas import (
-    commit_batch_stats, depth_apply, normalize_images, per_slice_batch_stats,
+    commit_batch_stats, depth_apply, global_batch_stats, normalize_images,
+    per_slice_batch_stats,
 )
 from ..ops import geometry
+from ..parallel.mesh import is_writer
 from ..solver import pose_opt, xforms
 from ..solver.pose_opt import PoseOptInputs
 from ..solver.residuals import SolverParams
@@ -257,18 +268,22 @@ def train_step(net, optimizer: FlatAdam, loss_opt: LossParams,
 
     Updates the net's parameters (through `optimizer`) and its BatchNorm
     running statistics in place, both only when the loss and every gradient
-    are finite. Returns device tensors: the loss, the loss parts, and the
-    guard flag. Nothing is read back to the host."""
+    are finite. With the optimizer's mesh, `batch_ids` are this rank's
+    pairs of the global batch, whose BatchNorm statistics, loss and
+    gradient the step takes. Returns device tensors: the loss (the global
+    batch's), this rank's loss parts, and the guard flag. Nothing is read
+    back to the host."""
     frames, images, meta = _batch(batch_ids, clip, ps, use_temporal)
     optimizer.zero_grad()
-    depth = _train_mode_depth(net, images, frames, clip, ps)
+    with global_batch_stats(net, optimizer.mesh):
+        depth = _train_mode_depth(net, images, frames, clip, ps)
     total, parts = losses.joint_loss(
         loss_opt, images, clip.depth_orig[frames], depth, meta,
         params=optimizer.leaf, params_init=optimizer.init,
     )
     total.backward()
     optimizer.check_aliasing()
-    loss = total.detach()
+    loss = total.detach().clone()
     ok = optimizer.step(loss)
     commit_batch_stats(net, ok)
     return loss, {name: v.detach() for name, v in parts.items()}, ok
@@ -290,6 +305,34 @@ def eval_losses(net, flat: torch.Tensor, init: torch.Tensor, loss_opt: LossParam
         )
 
 
+def _refreshed_inputs(inputs: PoseOptInputs, depth: torch.Tensor) -> PoseOptInputs:
+    """`inputs` with the per-frame median of `depth` (N, H, W) and the
+    constraints' source depths sampled from it (nearest, truncation toward
+    zero, as the JAX package samples)."""
+    n, h, w = depth.shape
+    srt = depth.reshape(n, -1).sort(dim=1).values
+    m = srt.shape[1]
+    med = (srt[:, (m - 1) // 2] + srt[:, m // 2]) / 2  # jnp.median's midpoint
+    inv_aspect = 1.0 / inputs.aspect
+
+    def samp(frames, loc):
+        # NDC -> [0, 1] x [0, inv_aspect], then truncation toward zero
+        u = (loc[..., 0] + 1) / 2
+        v = (1 - loc[..., 1]) / 2 * inv_aspect
+        x = torch.clamp((u * w).to(torch.int32), 0, w - 1).long()
+        y = torch.clamp((v / inv_aspect * h).to(torch.int32), 0, h - 1).long()
+        return depth[frames[:, None], y, x]
+
+    data = inputs.data
+    return inputs._replace(
+        data=data._replace(
+            depth0=samp(data.pair[:, 0], data.loc0),
+            depth1=samp(data.pair[:, 1], data.loc1),
+        ),
+        median_depth=med,
+    )
+
+
 class FineTuner:
     """Epochs of train steps alternating with depth refreshes and pose
     solves (reference DepthFineTuner.fine_tune, depth_fine_tuning.py:311-631).
@@ -301,7 +344,9 @@ class FineTuner:
     save_epoch_freq and the eval/ artifacts at val_epoch_freq. With
     recon=colmap, `pose_state_override` holds the fixed COLMAP geometry (on
     `device`) and no pose solve runs. `device` is where training runs ("cuda" unless the
-    caller asks for "cpu"); `clip` and `pose_inputs` must live there."""
+    caller asks for "cpu"); `clip` and `pose_inputs` must live there. With
+    `mesh` (the data mesh, on `device`), only rank 0 needs `pose_inputs`
+    and `pose`: it solves and writes; the other ranks pass None."""
 
     def __init__(self, cfg: PipelineConfig, adapter, clip: ClipData,
                  pose_inputs: Optional[PoseOptInputs], seed: int = 0,
@@ -309,10 +354,6 @@ class FineTuner:
                  pose_state_override: Optional[PoseState] = None,
                  device="cuda", cudnn_tf32: bool = True):
         ft = cfg.ft
-        if mesh is not None:
-            raise NotImplementedError(
-                "the data-parallel mesh fine-tune is not ported yet (multi-GPU slice)"
-            )
         if cfg.recon == "colmap" and pose_state_override is None:
             raise ValueError(
                 "recon=colmap requires a pose_state_override built from the "
@@ -324,6 +365,10 @@ class FineTuner:
             raise ValueError(f"unknown optimizer {ft.optimizer!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh computes on {mesh.device}, the tuner on {self.device}")
+        self.mesh = mesh
+        self.n_mesh = 1 if mesh is None else mesh.size
         self.cudnn_tf32 = cudnn_tf32
         self.pose_state_override = pose_state_override
         self.adapter = adapter
@@ -339,8 +384,15 @@ class FineTuner:
         # with RAdam)
         self.optimizer = FlatAdam(
             list(self.net.named_parameters()), lr, rectified=optimizer == "radam",
-            mu_bf16=ft.optimizer_mu_bf16 and optimizer == "adam",
+            mu_bf16=ft.optimizer_mu_bf16 and optimizer == "adam", mesh=mesh,
         )
+        if mesh is not None:
+            # every replica starts from rank 0's weights and statistics
+            opt = self.optimizer
+            mesh.broadcast_(opt.flat)
+            opt.init.copy_(opt.flat)
+            for buf in self.net.buffers():
+                mesh.broadcast_(buf)
         self.use_temporal = (
             cfg.loss.lambda_smooth_disparity > 0
             or cfg.loss.lambda_smooth_reprojection > 0
@@ -361,7 +413,9 @@ class FineTuner:
         tb_dir = ft.tensorboard_log_path or ft.log_dir
         if not tb_dir and out_dir is not None:
             tb_dir = pjoin(out_dir, "tensorboard")
-        if ft.save_tensorboard and tb_dir:
+        # the same on every rank: the epoch's parts are gathered for it
+        self.log_train = bool(ft.save_tensorboard and tb_dir)
+        if self.log_train and is_writer(mesh):
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError as e:
@@ -374,6 +428,7 @@ class FineTuner:
             torch.cuda.synchronize(self.device)
 
     def train_step(self, batch_ids: torch.Tensor):
+        """One step on this rank's pairs `batch_ids` (see train_step)."""
         with float32_precision(self.cudnn_tf32):
             return train_step(
                 self.net, self.optimizer, self.cfg.loss, batch_ids, self.clip,
@@ -382,16 +437,27 @@ class FineTuner:
 
     def optimize_poses(self):
         """Cold solve the first time, warm re-solves after that
-        (opt.warm_start); every LM solve is appended to `solve_log`."""
+        (opt.warm_start); every LM solve is appended to `solve_log`. On a
+        mesh, rank 0 solves and broadcasts the pose state."""
         t0 = time.perf_counter()
-        self.solver_params = pose_opt.run(
-            self.cfg.opt, self.pose_inputs, initial=self.solver_params,
-            log=self.solve_log,
-        )
-        self.pose_state = pose_state_from_solver(
-            self.solver_params, tuple(self.clip.images.shape[1:3]),
-            self.pose_inputs.aspect, self.clip.depth_orig,
-        )
+        if is_writer(self.mesh):
+            self.solver_params = pose_opt.run(
+                self.cfg.opt, self.pose_inputs, initial=self.solver_params,
+                log=self.solve_log,
+            )
+            self.pose_state = PoseState(*(t.contiguous() for t in pose_state_from_solver(
+                self.solver_params, tuple(self.clip.images.shape[1:3]),
+                self.pose_inputs.aspect, self.clip.depth_orig,
+            )))
+        else:
+            n, h, w = self.clip.depth_orig.shape
+            self.pose_state = PoseState(*(
+                torch.empty(shape, device=self.device)
+                for shape in ((n, 3, 4), (n, 4), (n, h, w), (n, h, w, 2))
+            ))
+        if self.mesh is not None:
+            for t in self.pose_state:
+                self.mesh.broadcast_(t)
         self._sync()
         dt = time.perf_counter() - t0
         self.stats["pose_opt_s"] += dt
@@ -404,11 +470,32 @@ class FineTuner:
             self.pose.save()
             self.stats["persist_io_s"] += time.perf_counter() - t1
 
+    def epoch_batches(self, order: torch.Tensor) -> List[Tuple[int, torch.Tensor]]:
+        """An epoch's steps in the permutation `order` (P,): (global batch
+        size, this rank's pair ids) each. P // B full batches, then the
+        remainder as one step (reference DataLoader drop_last=False), as the
+        JAX package groups them. On a mesh of n ranks B = min(batch_size * n,
+        P) // n * n, rank r takes columns r*B/n:(r+1)*B/n of each full batch
+        (P(None, "data")), and the remainder runs whole on every rank."""
+        n_pairs, n = int(order.shape[0]), self.n_mesh
+        if self.mesh is None:
+            batch = max(1, min(self.cfg.ft.batch_size, n_pairs))
+            r = 0
+        else:
+            batch = min(self.cfg.ft.batch_size * n, n_pairs) // n * n
+            r = self.mesh.rank
+        full = n_pairs // batch if batch else 0
+        b = batch // n
+        steps = [(batch, order[s * batch + r * b : s * batch + (r + 1) * b])
+                 for s in range(full)]
+        if full * batch < n_pairs:
+            steps.append((n_pairs - full * batch, order[full * batch :]))
+        return steps
+
     def run(self, num_epochs: Optional[int] = None):
         ft = self.cfg.ft
         num_epochs = num_epochs or ft.num_epochs
         n_pairs = int(self.clip.pair_idx.shape[0])
-        batch = max(1, min(ft.batch_size, n_pairs))
         inter_freq = ft.save_intermediate_depth_streams_freq
         persist = self.pose is not None and self.out_dir is not None
 
@@ -453,10 +540,10 @@ class FineTuner:
             t0 = time.perf_counter()
             order = torch.as_tensor(self.rng.permutation(n_pairs), device=self.device)
             losses_d, parts_d, oks = [], [], []
-            # P // B full batches, then the remainder as one step (reference
-            # DataLoader drop_last=False), as the JAX package groups them
-            for s in range(0, n_pairs, batch):
-                loss, parts, ok = self.train_step(order[s : s + batch])
+            coll0 = self.mesh.stats["collective_s"] if self.mesh is not None else 0.0
+            steps = self.epoch_batches(order)
+            for _, ids in steps:
+                loss, parts, ok = self.train_step(ids)
                 losses_d.append(loss)
                 parts_d.append(parts)
                 oks.append(ok)
@@ -471,16 +558,24 @@ class FineTuner:
                 "epoch": epoch, "loss": mean_loss, "sec": dt, "steps": len(oks),
                 "skipped": int(skipped), "host_syncs": 1,
             })
+            if self.mesh is not None:
+                # host seconds in the mesh's collectives during the steps
+                coll = self.mesh.stats["collective_s"] - coll0
+                self.history[-1]["collective_s"] = coll
+                self.stats["train_collective_s"] = self.stats.get("train_collective_s", 0.0) + coll
             print(f"fine-tune epoch {epoch}: loss {mean_loss:.6f}, {len(oks)} steps, "
                   f"{int(skipped)} skipped, 1 host sync in the train loop, {dt:.3f} s")
-            if self.writer is not None:
-                self._log_epoch(total_iters, batch, n_pairs, losses_d, parts_d)
+            if self.log_train:
+                parts_d = self._global_parts(steps, parts_d)
+                if self.writer is not None:
+                    self._log_epoch(total_iters, [size for size, _ in steps], losses_d, parts_d)
             total_iters += n_pairs
 
             if val_freq > 0 and (epoch + 1) % val_freq == 0:
                 self.validate(epoch + 1, total_iters)
 
-            if ft.save_checkpoints and (epoch + 1) % max(1, ft.save_epoch_freq) == 0:
+            if (ft.save_checkpoints and (epoch + 1) % max(1, ft.save_epoch_freq) == 0
+                    and is_writer(self.mesh)):
                 ckpt_dir = pjoin(self.out_dir, "checkpoints") if self.out_dir else "checkpoints"
                 self.save_checkpoint(ckpt_dir, epoch + 1)
 
@@ -522,7 +617,32 @@ class FineTuner:
             self.writer.flush()
         return self.history
 
-    def _log_epoch(self, iters0: int, batch: int, n_pairs: int, losses, parts):
+    def _global_parts(self, steps, parts):
+        """The steps' loss parts over the global batch: each rank's per-pair
+        values of a full batch in rank order, the batch-wide ones (one value
+        a rank) as their mean over the ranks; the trailing step's are the
+        same on every rank. One all-gather; without a mesh, `parts`."""
+        if self.mesh is None:
+            return parts
+        n = self.n_mesh
+        flat = torch.cat([v.reshape(-1) for p in parts for v in p.values()])
+        every = self.mesh.all_gather_leading(flat[None], n)  # (n, len)
+        out, at = [], 0
+        for (size, ids), p in zip(steps, parts):
+            row = {}
+            for k, v in p.items():
+                vals = every[:, at : at + v.numel()]
+                at += v.numel()
+                if size == ids.numel():  # the trailing step, whole on every rank
+                    row[k] = vals[0]
+                elif v.numel() == ids.numel():
+                    row[k] = vals.reshape(-1)
+                else:
+                    row[k] = vals.mean(0)
+            out.append(row)
+        return out
+
+    def _log_epoch(self, iters0: int, sizes: List[int], losses, parts):
         """Tensorboard summaries of one epoch, as the JAX package writes them
         (on the reference's running pair counter, depth_fine_tuning.py:
         542-551): per-step loss and part mean/max/min every print_freq
@@ -532,8 +652,8 @@ class FineTuner:
         losses = torch.stack(losses).cpu().numpy()
         parts = [{k: np.atleast_1d(v.cpu().numpy()) for k, v in p.items()} for p in parts]
         it, display_at = iters0, None
-        for s, (lval, prow) in enumerate(zip(losses, parts)):
-            it += min(batch, n_pairs - s * batch)
+        for size, lval, prow in zip(sizes, losses, parts):
+            it += size
             if it % max(1, ft.print_freq) == 0:
                 self.writer.add_scalar("Train/loss", float(lval), it)
                 for k, arr in prow.items():
@@ -617,8 +737,12 @@ class FineTuner:
         if self.out_dir is None:
             return self.eval_pair_losses()
         ft = self.cfg.ft
+        # on a mesh every rank computes (depth inference is collective) and
+        # rank 0 writes
+        write = is_writer(self.mesh)
         eval_dir = pjoin(self.out_dir, "eval")
-        os.makedirs(eval_dir, exist_ok=True)
+        if write:
+            os.makedirs(eval_dir, exist_ok=True)
         suf = f"_e{epoch:04d}_iter{niters:06d}"
 
         entries = self.eval_pair_losses()
@@ -631,8 +755,9 @@ class FineTuner:
         loss_dict["mean"] = {
             name: float(np.mean(list(vals.values()))) for name, vals in loss_dict.items()
         }
-        with open(pjoin(eval_dir, f"loss{suf}.json"), "w") as f:
-            json.dump(loss_dict, f)
+        if write:
+            with open(pjoin(eval_dir, f"loss{suf}.json"), "w") as f:
+                json.dump(loss_dict, f)
         if self.writer is not None:
             for name, mean in loss_dict["mean"].items():
                 self.writer.add_scalar(f"validation/{name}", mean, epoch)
@@ -640,6 +765,7 @@ class FineTuner:
         depth = None
         if ft.save_eval_images or epoch in (0, ft.num_epochs):
             depth = self.infer_depth()
+        if depth is not None and write:
             disparity = (1.0 / depth.clamp_min(1e-7)).cpu().numpy()
             depth_np = depth.cpu().numpy()
             dmax = float(disparity.max())
@@ -650,7 +776,7 @@ class FineTuner:
                     pre + ".png", visualize_depth(depth_np[i], depth_min=1.0 / max(dmax, 1e-7))
                 )
 
-        if ft.save_depth_xform_maps:
+        if ft.save_depth_xform_maps and write:
             scales = self.pose_state.scales.cpu().numpy()
             smax = float(scales.max())
             for i in range(scales.shape[0]):
@@ -667,7 +793,8 @@ class FineTuner:
             if depth is None:
                 depth = self.infer_depth()
             pair_idx = self.clip.pair_idx.cpu().numpy()
-            for s, flow in self._scene_flow_chunks(depth * self.pose_state.scales):
+            chunks = self._scene_flow_chunks(depth * self.pose_state.scales) if write else ()
+            for s, flow in chunks:
                 for q in range(flow.shape[0]):
                     i, j = (int(x) for x in pair_idx[s + q])
                     save_png_color(
@@ -677,12 +804,13 @@ class FineTuner:
 
         # stdout table (reference depth_fine_tuning.py:826-858)
         names = [n for n in loss_dict if n != "mean"]
-        for e in entries:
+        for e in entries if write else ():
             line = f"({e['pair'][0]:3d}, {e['pair'][1]:3d}): "
             line += ", ".join(f"{n}: {e.get(n, 0.0):10.6f}" for n in names)
             print(line)
-        print("Mean:        "
-              + ", ".join(f"{n}: {loss_dict['mean'][n]:10.6f}" for n in names))
+        if write:
+            print("Mean:        "
+                  + ", ".join(f"{n}: {loss_dict['mean'][n]:10.6f}" for n in names))
         return loss_dict
 
     def _scene_flow_chunks(self, depth: torch.Tensor, chunk: int = 32):
@@ -705,40 +833,28 @@ class FineTuner:
     def refresh_depth(self):
         """Re-infer the clip's depth with the current weights, then refresh
         the solver inputs: per-frame median depth and the constraints'
-        source depths by nearest sampling, all on the device."""
+        source depths by nearest sampling, all on the device (on a mesh,
+        rank 0's, the one that solves)."""
         t0 = time.perf_counter()
-        depth = self.infer_depth()
-        n, h, w = depth.shape
-        srt = depth.reshape(n, -1).sort(dim=1).values
-        m = srt.shape[1]
-        med = (srt[:, (m - 1) // 2] + srt[:, m // 2]) / 2  # jnp.median's midpoint
-        inv_aspect = 1.0 / self.pose_inputs.aspect
-
-        def samp(frames, loc):
-            # NDC -> [0, 1] x [0, inv_aspect], then truncation toward zero
-            u = (loc[..., 0] + 1) / 2
-            v = (1 - loc[..., 1]) / 2 * inv_aspect
-            x = torch.clamp((u * w).to(torch.int32), 0, w - 1).long()
-            y = torch.clamp((v / inv_aspect * h).to(torch.int32), 0, h - 1).long()
-            return depth[frames[:, None], y, x]
-
-        data = self.pose_inputs.data
-        self.pose_inputs = self.pose_inputs._replace(
-            data=data._replace(
-                depth0=samp(data.pair[:, 0], data.loc0),
-                depth1=samp(data.pair[:, 1], data.loc1),
-            ),
-            median_depth=med,
-        )
-        self.current_depth = depth
+        self.current_depth = self.infer_depth()
+        if self.pose_inputs is not None:
+            self.pose_inputs = _refreshed_inputs(self.pose_inputs, self.current_depth)
         self._sync()
         self.stats["refresh_s"] += time.perf_counter() - t0
 
     def infer_depth(self, batch: int = 8) -> torch.Tensor:
         """Whole-clip eval-mode inference in chunks of `batch` frames, the
         last chunk padded by repeating its final frame (reference
-        save_depth, depth_fine_tuning.py:227-294)."""
-        images = self.clip.images
+        save_depth, depth_fine_tuning.py:227-294). On a mesh each rank
+        infers its shard of the frames and every rank gets the whole
+        clip's depth."""
+        if self.mesh is None:
+            return self._infer(self.clip.images, batch)
+        n = self.clip.images.shape[0]
+        ids = torch.as_tensor(self.mesh.shard(n), device=self.device)
+        return self.mesh.all_gather_leading(self._infer(self.clip.images[ids], batch), n)
+
+    def _infer(self, images: torch.Tensor, batch: int) -> torch.Tensor:
         n = images.shape[0]
         outs = []
         self.net.eval()

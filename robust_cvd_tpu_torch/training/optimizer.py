@@ -20,6 +20,11 @@ device, so one kernel launch (ops/adam.py) updates all of them:
   count advances by the flag, so a skipped step leaves parameters, moments
   and count (and, through the caller, BatchNorm statistics) unchanged, as
   optax's state is reverted in the JAX step.
+- on a data mesh (parallel/mesh.py) `step` first replaces the gradient and
+  the loss by their means over the ranks (the flat buffer makes the
+  gradient one all-reduce), so the guard and the update see the global
+  batch's, every rank takes or skips the same step, and replicas that
+  start equal stay equal bit for bit.
 
 The views are made on the net's current device; moving the net afterwards
 would break them (`check_aliasing` catches that).
@@ -42,7 +47,7 @@ class FlatAdam:
     bfloat16 buffer. The two options exclude each other."""
 
     def __init__(self, named_params: List[Tuple[str, nn.Parameter]], lr: float,
-                 rectified: bool = False, mu_bf16: bool = False):
+                 rectified: bool = False, mu_bf16: bool = False, mesh=None):
         if rectified and mu_bf16:
             raise ValueError("optax.radam has no bf16 first moment")
         if not named_params:
@@ -62,6 +67,7 @@ class FlatAdam:
         self.numel = n
         self.lr = lr
         self.rectified = rectified
+        self.mesh = mesh
 
         self.flat = torch.empty(n, dtype=dtype, device=device)
         self.grad = torch.zeros(n, dtype=dtype, device=device)
@@ -102,7 +108,12 @@ class FlatAdam:
 
     def step(self, loss: torch.Tensor) -> torch.Tensor:
         """Guarded update from the accumulated `grad`; returns the device
-        bool flag (True: the step was taken)."""
+        bool flag (True: the step was taken). On a mesh, `grad` and `loss`
+        (this rank's) are replaced in place by their means over the ranks
+        first."""
+        if self.mesh is not None:
+            self.mesh.all_reduce_mean_(self.grad)
+            self.mesh.all_reduce_mean_(loss)
         ok = torch.isfinite(loss) & torch.isfinite(self.grad).all()
         adam_update(self.flat, self.grad, self.mu, self.nu, self.count, ok, self.lr,
                     rectified=self.rectified)

@@ -48,7 +48,8 @@ def test_path_phase_on_cpu(monkeypatch, capsys, tmp_path):
     assert chip_smoke.processor_phase(base, tuner.solver_params, 0, device="cpu",
                                       solver_options=small) == 0
     out = capsys.readouterr().out
-    for line in ("processor proc_fgf_far", "card vs CPU on 6 frames", "processor compute_tracks",
+    for line in ("processor proc_fgf_far", "card vs CPU on 6 frames", "from the median bracket",
+                 "processor compute_tracks",
                  "processor reset_normalize_optimize", "each below its start"):
         assert line in out
     assert chip_smoke.optimizer_epochs_phase(tuner, device="cpu") == {
@@ -80,7 +81,12 @@ def test_flow_phase_on_cpu(monkeypatch, capsys, tmp_path):
     assert "30 of 30 masks equal" in capsys.readouterr().out
 
 
-def test_pipeline_phase_on_cpu(monkeypatch, capsys, tmp_path):
+SMALL_SOLVER = ["--opt.num_steps", "2", "--opt.ctf_long", "3", "--opt.ctf_short", "2",
+                "--opt.lm_max_outer", "4", "--opt.lm_cg_iters", "8"]
+
+
+@pytest.fixture(scope="module")
+def pipeline_run(tmp_path_factory):
     """The pipeline phase at a cut size: 8 frames at the card's 224x384, the
     CLI's nets narrowed to the small MiDaS net and RAFT float32 with 2
     iterations (its flow head zeroed by the phase), the small solver
@@ -89,16 +95,25 @@ def test_pipeline_phase_on_cpu(monkeypatch, capsys, tmp_path):
     solves) raise on failure. The frame keeps the card's size because a
     mask ratio may miss its in-bounds share by the top and bottom rows and
     a border column (flows a few 1e-5 px off the integer shift), 2/H + 1/W:
-    0.0115 at 224x384, 0.0208 at 128x192, against the phase's 0.02."""
-    monkeypatch.setattr(midas, "MidasNet", functools.partial(
-        midas.MidasNet, features=32, backbone_layers=(1, 1, 1, 1)))
-    monkeypatch.setattr(raft, "RAFT", functools.partial(raft.RAFT, iters=2, dtype=torch.float32))
-    base = str(tmp_path / "clip")
-    small = ["--opt.num_steps", "2", "--opt.ctf_long", "3", "--opt.ctf_short", "2",
-             "--opt.lm_max_outer", "4", "--opt.lm_cg_iters", "8"]
-    launches, proc = chip_smoke.pipeline_phase(base, 8, 0, 1, device="cpu", argv=small)
+    0.0115 at 224x384, 0.0208 at 128x192, against the phase's 0.02.
+    Returns the clip, the launches, the processor and the output."""
+    import io
+    from contextlib import redirect_stdout
+
+    base = str(tmp_path_factory.mktemp("pipeline") / "clip")
+    out = io.StringIO()
+    with pytest.MonkeyPatch.context() as m, redirect_stdout(out):
+        m.setattr(midas, "MidasNet", functools.partial(
+            midas.MidasNet, features=32, backbone_layers=(1, 1, 1, 1)))
+        m.setattr(raft, "RAFT", functools.partial(raft.RAFT, iters=2, dtype=torch.float32))
+        launches, proc = chip_smoke.pipeline_phase(base, 8, 0, 1, device="cpu",
+                                                   argv=SMALL_SOLVER)
+    return base, launches, proc, out.getvalue()
+
+
+def test_pipeline_phase_on_cpu(pipeline_run):
+    base, launches, proc, out = pipeline_run
     assert launches == {"corner": 0, "adam": 0}  # the CPU takes the plain versions
-    out = capsys.readouterr().out
     for line in ("pipeline stage fine_tune ", "pipeline_s_per_frame ", "post_filter_s ",
                  "pipeline flows vs truth: 30 pairs", "1 warm at or below",
                  "post filter: stream fine_tuned_filtered, 8 finite positive frames"):
@@ -107,6 +122,24 @@ def test_pipeline_phase_on_cpu(monkeypatch, capsys, tmp_path):
         base, "R0-7_hierarchical2_midas2", "stage_timings.json")))["spans"]]
     assert set(chip_smoke.PIPELINE_SPANS) <= set(names)
     assert proc.device.type == "cpu" and len(proc.tuner.history) == 1
+
+
+def test_mesh_phase_on_cpu(pipeline_run, capsys):
+    """The mesh phase on the first 4 frames of the pipeline phase's clip: the
+    CLI on two gloo ranks (spawned processes with the same cut: small nets,
+    small solver, one epoch) on a copy of their inputs; its checks (the
+    result tree, the initial depth, flows and masks against the one-process
+    files, replicas bitwise equal, launches and steps) raise on failure."""
+    base, _, proc, _ = pipeline_run
+    mesh = str(os.path.join(os.path.dirname(base), "mesh", "clip"))
+    launches = chip_smoke.mesh_phase(base, mesh, 4, 1, proc.tuner.history, device="cpu",
+                                     argv=SMALL_SOLVER, small_nets=True)
+    assert launches == {"corner": [0, 0], "adam": [0, 0]}  # the CPU's plain versions
+    out = capsys.readouterr().out
+    for line in ("mesh: 2 ranks on cpu over gloo", "10 flows max|err|", "masks differ in 0 of",
+                 "mesh rank 1 epoch 0:", "one process epoch", "mesh replicas: one digest",
+                 "stage mesh_phase_s"):
+        assert line in out, line
 
 
 def test_mask_rcnn_phase_on_cpu(monkeypatch, capsys, tmp_path):
@@ -158,6 +191,25 @@ def test_quality_phase_checks(monkeypatch, capsys):
         use(dict(chip_smoke.JAX_GATES, **{key: value}))
         with pytest.raises(AssertionError, match=key):
             chip_smoke.quality_phase(device="cpu")
+
+
+def test_median_bracket():
+    """The weighted median's bracket: a pixel whose cumulative weight ties
+    with half the total admits both neighbouring samples, a clear one only
+    its median; filters._weighted_median's pick lies inside on random data."""
+    from robust_cvd_tpu_torch.ops import filters
+
+    zs = torch.tensor([[4.0, 1.0], [3.0, 2.0], [2.0, 3.0], [1.0, 4.0]])
+    wgt = torch.tensor([[1.0, 1.0], [1.0, 1.0], [1.0, 1.0], [1.0, 2.0]])
+    lo, hi, ties = chip_smoke.median_bracket(zs, wgt)
+    assert lo.tolist() == [2.0, 3.0] and hi.tolist() == [3.0, 3.0] and ties == 1
+    assert filters._weighted_median(zs, wgt).tolist() == [2.0, 3.0]
+    gen = torch.Generator().manual_seed(0)
+    zs, wgt = torch.rand((7, 500), generator=gen), torch.rand((7, 500), generator=gen)
+    wgt[3:] *= torch.rand((4, 500), generator=gen) > 0.5  # invalid samples weigh 0
+    lo, hi, _ = chip_smoke.median_bracket(zs, wgt)
+    pick = filters._weighted_median(zs, wgt)
+    assert bool(((lo <= pick) & (pick <= hi)).all())
 
 
 def test_small_tuner_steps_on_cpu():

@@ -174,7 +174,7 @@ def test_checkpoints_per_epoch(runs):
         assert int(ck["count"]) == want
 
 
-def test_unported_fine_tune_paths_raise(runs):
+def test_unported_fine_tune_paths_raise(runs, tmp_path):
     import dataclasses
 
     from robust_cvd_tpu_torch.training.fine_tune import FineTuner
@@ -203,9 +203,37 @@ def test_unported_fine_tune_paths_raise(runs):
     with pytest.raises(ValueError, match="pose_state_override"):
         FineTuner(dataclasses.replace(cfg, recon="colmap"), tuner.adapter, tuner.clip,
                   tuner.pose_inputs, device="cpu")
-    with pytest.raises(NotImplementedError):
-        FineTuner(cfg, tuner.adapter, tuner.clip, tuner.pose_inputs, mesh=object(),
-                  device="cpu")
+    # the data-parallel mesh is ported (tests/test_torch_pkg_mesh.py holds a
+    # 2-rank run to the JAX package's mesh): on a 1-rank group a tuner with
+    # the mesh takes the batches and the step of one without it, with its
+    # BatchNorm statistics from the mesh's all-reduced sums
+    from robust_cvd_tpu_torch.parallel.mesh import destroy_mesh, init_mesh
+
+    net = tuner.adapter.net
+    state = {k: v.clone() for k, v in net.state_dict().items()}
+    ids = torch.tensor([0, 2])
+    plain = FineTuner(cfg, tuner.adapter, tuner.clip, tuner.pose_inputs, device="cpu")
+    plain.pose_state = tuner.pose_state
+    loss_p, _, _ = plain.train_step(ids)
+    stats_p = [b.clone() for b in net.buffers()]
+    net.load_state_dict(state)
+    mesh = init_mesh(device="cpu", init_method=f"file://{tmp_path}/store", rank=0,
+                     world_size=1)
+    try:
+        meshed = FineTuner(cfg, tuner.adapter, tuner.clip, tuner.pose_inputs, mesh=mesh,
+                           device="cpu")
+        meshed.pose_state = tuner.pose_state
+        order = torch.arange(int(tuner.clip.pair_idx.shape[0]))
+        assert [(b, i.tolist()) for b, i in meshed.epoch_batches(order)] == [
+            (b, i.tolist()) for b, i in plain.epoch_batches(order)]
+        loss_m, _, ok = meshed.train_step(ids)
+    finally:
+        destroy_mesh()
+    assert bool(ok) and int(meshed.optimizer.count) == 1
+    np.testing.assert_allclose(float(loss_m), float(loss_p), rtol=1e-5)
+    for a, b in zip(net.buffers(), stats_p):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-6)
+    net.load_state_dict(state)
     # pipeline() now runs: on a copy of the clip given colour frames, every
     # stage before fine-tuning reuses the clip's outputs (no RAFT needed)
     base = runs["tdir"] + "_pipeline"
