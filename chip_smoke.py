@@ -32,7 +32,14 @@ Phases, each of which raises on failure (exit code 1):
    against the same solve on the CPU (poses within 1e-3); the same cold
    solve on the card with the exact diagonal off and 4 Hutchinson probes
    an outer step (at most 10 LM steps a solve) ends each LM solve below
-   its start.
+   its start. Then the constraint-sharded solve (sharded_solve_check): the
+   static scene of tests/test_torch_pkg_sharded_solve.py on the card in
+   this process and on SHARDED_RANKS spawned ranks sharing it over gloo,
+   the ranks' SolverParams bitwise equal after every LM solve, the poses
+   within 5e-3 and the depth grid within 2e-2 relative of one process's;
+   and the IO engine (io_engine_check): a 100-frame 224x384 depth stream
+   written and read through native/io_engine.cpp and through io/raw.py's
+   loop, the files equal byte for byte, both times printed.
 4. train step: two FineTuner steps of the small MiDaS net (features 32,
    backbone (1, 1, 1, 1)) on a 4-frame 32x64 clip on the card (Adam kernel)
    and on the CPU (plain Adam), convolutions without TF32, with Adam, RAdam
@@ -163,9 +170,12 @@ Phases, each of which raises on failure (exit code 1):
    the result tree; the initial depth, flows and masks against the pipeline
    phase's one-process files (MESH_DEPTH_TOL, RAFT_TOL, MESH_MASK_SHARE);
    replicas bitwise equal (one digest of parameters and BatchNorm
-   buffers); each rank's Adam launches equal to its train steps with none
-   skipped, the corner kernel in every rank's flow chunks. Prints each
-   rank's epoch (seconds, steps, ms a step, the collectives' share) beside
+   buffers, and every LM solve's SolverParams digest equal on every rank:
+   each rank solves each step on its share of the constraints); each rank's Adam
+   launches equal to its train steps with none skipped, the corner kernel
+   in every rank's flow chunks. Prints each rank's solves (seconds, the
+   cold solve's, LM solves, CG iterations, all-reduces and their seconds)
+   and epochs (seconds, steps, ms a step, the collectives' share) beside
    the pipeline phase's epochs. Then a 1-rank nccl group's all_reduce on
    the card, and with two or more cards the CLI over nccl on one rank a
    card (a line says when it was not run).
@@ -763,6 +773,212 @@ def solver_phase(seed: int) -> None:
     print(f"solver: 6-frame cold solve with 4 Hutchinson probes on the card, {len(log)} LM "
           f"solves below their start; poses within {(probed - gpu).abs().max().item():.3e} "
           f"of the exact-diagonal solve's")
+
+
+# The sharded solve's check: the static scene of
+# tests/test_torch_pkg_sharded_solve.py (tests/test_solver.py's
+# make_scene(num_frames=4, pts_per_pair=24): exact reprojections, cameras
+# at (0.1 i, 0, 0.05 i), focal 0.5) under tests/test_parallel_solver.py's
+# options, held to that test's bounds.
+SHARDED_RANKS = 2
+SHARDED_OPT = dict(num_steps=2, ctf_long=4, ctf_short=3, lm_max_outer=10, lm_cg_iters=16,
+                   graduate_deformation_regularization=True)
+SHARDED_POSE_ATOL, SHARDED_GRID_RTOL = 5e-3, 2e-2
+RANKS_JOIN_S = 300  # the sharded solve's ranks' time limit
+
+
+def sharded_scene(num_frames: int = 4, pts: int = 24, seed: int = 0) -> dict:
+    """make_scene's pair constraints as numpy arrays (ConstraintData's
+    fields), drawn from the same numpy generator."""
+    import torch
+
+    from robust_cvd_tpu_torch.solver import residuals
+
+    rng = np.random.default_rng(seed)
+    pose = np.zeros((num_frames, 6), np.float32)
+    pose[:, 0] = 0.1 * np.arange(num_frames)
+    pose[:, 2] = 0.05 * np.arange(num_frames)
+    pair = np.asarray([(i, j) for i in range(num_frames) for j in range(num_frames)
+                       if abs(i - j) == 1], np.int64)
+    ndc = rng.uniform(-0.8, 0.8, (len(pair), pts, 2)).astype(np.float32)
+    depth = rng.uniform(1.5, 3.0, (len(pair), pts)).astype(np.float32)
+    f = torch.full((len(pair),), 0.5)
+    pose_t = torch.from_numpy(pose)
+    world = residuals.camera_to_world(
+        torch.cat([torch.from_numpy(ndc), torch.from_numpy(depth)[..., None]], -1), f, f,
+        pose_t[pair[:, 0]])
+    pj = residuals.world_to_camera(world, f, f, pose_t[pair[:, 1]]).numpy()
+    return dict(pair=pair, loc0=ndc, loc1=np.ascontiguousarray(pj[..., :2]), depth0=depth,
+                depth1=np.ascontiguousarray(pj[..., 2]),
+                weight=np.ones((len(pair), pts), np.float32))
+
+
+def sharded_solve(arrays: dict, opt: dict, device, mesh=None) -> dict:
+    """pose_opt.run with the PoseOptParams `opt` on the scene `arrays` on
+    `device`: on this rank's share
+    (shard_pose_inputs) with a mesh, else whole. Returns the poses, depth
+    grid, each LM solve's stage, SolverParams digest (on a mesh) and
+    all-reduces, and the seconds (the card synchronized)."""
+    import torch
+
+    from robust_cvd_tpu_torch.config import PoseOptParams
+    from robust_cvd_tpu_torch.parallel.mesh import shard_pose_inputs
+    from robust_cvd_tpu_torch.solver import pose_opt
+    from robust_cvd_tpu_torch.solver.residuals import ConstraintData
+
+    n = int(arrays["pair"].max()) + 1
+    inputs = pose_opt.PoseOptInputs(
+        data=ConstraintData(**{k: torch.from_numpy(arrays[k]).to(device)
+                               for k in ConstraintData._fields}),
+        median_depth=torch.full((n,), 2.5, device=device), aspect=1.0, num_frames=n)
+    if mesh is not None:
+        inputs = shard_pose_inputs(inputs, mesh)
+    log = []
+    t0 = time.perf_counter()
+    sp = pose_opt.run(PoseOptParams(**opt), inputs,
+                      focal=torch.full((n,), 0.5, device=device), log=log)
+    pose = sp.pose.cpu().numpy()
+    return dict(pose=pose, depth_grid=sp.depth_grid.cpu().numpy(),
+                stages=np.array([e["stage"] for e in log]),
+                digests=np.array([e.get("digest", "") for e in log]),
+                all_reduces=np.array([e.get("all_reduces", 0) for e in log]),
+                seconds=time.perf_counter() - t0)
+
+
+def sharded_solve_rank(rank: int, size: int, store: str, arrays: dict, opt: dict,
+                       out_dir: str, device: str) -> None:
+    """One rank of the sharded-solve check (gloo over the file:// `store`,
+    sharing `device`): sharded_solve on its share twice, the second saved
+    with its collective seconds to sharded_rank<r>.npz (a fresh process's
+    first solve also loads its kernels: 16.5 s against 5.9 s warm on an
+    H100)."""
+    import torch
+
+    from robust_cvd_tpu_torch.parallel.mesh import destroy_mesh, init_mesh
+
+    if device == "cpu":
+        torch.set_num_threads(1)
+    mesh = init_mesh(backend="gloo", device=device, init_method=f"file://{store}", rank=rank,
+                     world_size=size)
+    try:
+        sharded_solve(arrays, opt, mesh.device, mesh)
+        mesh.stats.update(collectives=0, collective_s=0.0)
+        res = sharded_solve(arrays, opt, mesh.device, mesh)
+        res["all_reduce_s"] = mesh.stats["collective_s"]
+    finally:
+        destroy_mesh()
+    np.savez(os.path.join(out_dir, f"sharded_rank{rank}.npz"), **res)
+
+
+def join_ranks(ctx, limit_s: float, what: str) -> None:
+    """Wait for spawned ranks; a failed rank raises (the others are
+    stopped), past limit_s all are killed."""
+    deadline = time.monotonic() + limit_s
+    while not ctx.join(max(1.0, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{what}: the ranks did not finish in {limit_s} s")
+
+
+def sharded_solve_check(device: str = "cuda") -> None:
+    """The constraint-sharded pose solve on `device`: the static scene
+    (sharded_scene) solved in this process (the second of two solves),
+    then on SHARDED_RANKS spawned ranks that share the device over gloo
+    (sharded_solve_rank). Every rank's SolverParams equal
+    bit for bit after every LM solve, the poses within SHARDED_POSE_ATOL
+    and the depth grid within SHARDED_GRID_RTOL of the one-process solve's
+    (the sums over the constraints run in another order), all-reduces in
+    every solve but the normalize solve (per-frame data only, whole on
+    every rank). Prints the seconds of both and the all-reduces."""
+    import torch.multiprocessing as mp
+
+    arrays, opt = sharded_scene(), SHARDED_OPT
+    sharded_solve(arrays, opt, device)
+    one = sharded_solve(arrays, opt, device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as d:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(
+            sharded_solve_rank,
+            args=(SHARDED_RANKS, os.path.join(d, "store"), arrays, opt, d, device),
+            nprocs=SHARDED_RANKS, join=False, start_method="spawn")
+        join_ranks(ctx, RANKS_JOIN_S, "sharded solve")
+        wall = time.perf_counter() - t0
+        reps = [dict(np.load(os.path.join(d, f"sharded_rank{r}.npz")))
+                for r in range(SHARDED_RANKS)]
+    pose_err = float(np.abs(reps[0]["pose"] - one["pose"]).max())
+    grid_err = float(np.abs(reps[0]["depth_grid"] / one["depth_grid"] - 1).max())
+    same = all(r["digests"].tolist() == reps[0]["digests"].tolist() and all(r["digests"])
+               and r["pose"].tobytes() == reps[0]["pose"].tobytes() for r in reps)
+    step = reps[0]["stages"] != "normalize"
+    reduced = all((r["all_reduces"][step] > 0).all() and not r["all_reduces"][~step].any()
+                  for r in reps)
+    for r, rep in enumerate(reps):
+        print(f"sharded solve rank {r}: {float(rep['seconds']):.3f} s, "
+              f"{int(rep['all_reduces'].sum())} all-reduces in {len(rep['digests'])} LM solves, "
+              f"{float(rep['all_reduce_s']):.3f} s in them")
+    print(f"sharded solve: {SHARDED_RANKS} ranks over gloo on {device} ({wall:.3f} s with their "
+          f"start) against one process ({one['seconds']:.3f} s): poses max|err| {pose_err:.3e} "
+          f"(tolerance {SHARDED_POSE_ATOL:g}), depth grid {grid_err:.3e} relative (tolerance "
+          f"{SHARDED_GRID_RTOL:g}), SolverParams {'equal' if same else 'DIFFERENT'} on every "
+          f"rank after each of {len(one['digests'])} LM solves")
+    if not (same and reduced and pose_err <= SHARDED_POSE_ATOL
+            and grid_err <= SHARDED_GRID_RTOL):
+        raise AssertionError("the sharded solve disagrees with one process or across its ranks")
+
+
+IO_FRAMES = 100  # the IO engine check's depth stream: the bench clip's length
+IO_REPS = 3
+
+
+def io_engine_check(base: str, n: int = IO_FRAMES, seed: int = 0) -> None:
+    """One n-frame HxW depth stream (disparity .raw files) written and read
+    through the IO engine (io/store.py::write_f32_frames, read_f32_frames,
+    built first) and through io/raw.py's frame-by-frame loop: the files
+    equal byte for byte and both reads equal the data. Prints the best of
+    IO_REPS times of each (the files in the page cache)."""
+    from robust_cvd_tpu_torch import native
+    from robust_cvd_tpu_torch.io import raw
+    from robust_cvd_tpu_torch.io.store import frame_name, read_f32_frames, write_f32_frames
+
+    t0 = time.perf_counter()
+    native._load_io()
+    build_s = time.perf_counter() - t0
+    disp = raw.depth_to_disparity(
+        np.random.default_rng(seed).uniform(0.5, 10.0, (n, H, W)).astype(np.float32))
+    paths = {}
+    for way in ("engine", "loop"):
+        os.makedirs(os.path.join(base, way))
+        paths[way] = [os.path.join(base, way, frame_name(i, ".raw")) for i in range(n)]
+
+    def loop_write(ps, frames):
+        for p, x in zip(ps, frames):
+            raw.save_raw_float32_image(p, x)
+
+    def loop_read(ps):
+        return np.stack([raw.load_raw_float32_image(p) for p in ps])
+
+    def best(fn, *args):
+        times, out = [], None
+        for _ in range(IO_REPS):
+            t = time.perf_counter()
+            out = fn(*args)
+            times.append(time.perf_counter() - t)
+        return min(times), out
+
+    we, _ = best(write_f32_frames, paths["engine"], disp)
+    wl, _ = best(loop_write, paths["loop"], disp)
+    re, got_e = best(read_f32_frames, paths["engine"])
+    rl, got_l = best(loop_read, paths["loop"])
+    same = all(open(a, "rb").read() == open(b, "rb").read()
+               for a, b in zip(paths["engine"], paths["loop"]))
+    mb = disp.nbytes / 1e6
+    print(f"io engine: a {n}-frame {H}x{W} depth stream ({mb:.1f} MB), build {build_s:.3f} s; "
+          f"write {we:.4f} s against the loop's {wl:.4f} s, read {re:.4f} s against "
+          f"{rl:.4f} s (best of {IO_REPS}); files {'equal' if same else 'DIFFERENT'} byte "
+          f"for byte")
+    if not (same and np.array_equal(got_e, disp) and np.array_equal(got_l, disp)):
+        raise AssertionError("the IO engine's files or reads differ from io/raw.py's")
 
 
 def panning_frames(n: int, seed: int, shift: int = SHIFT) -> np.ndarray:
@@ -2441,7 +2657,7 @@ def _mesh_rank(rank, size, store, clip, out_dir, epochs, backend, device, argv, 
                 "adam": adam.adam_update.launches, "history": tuner.history,
                 "stats": tuner.stats, "stages": proc.tracer.summary(),
                 "mesh": mesh.stats, "digest": digest.hexdigest(),
-                "out_dir": tuner.out_dir,
+                "out_dir": tuner.out_dir, "solve_log": tuner.solve_log,
             }, f)
     finally:
         destroy_mesh()
@@ -2577,6 +2793,23 @@ def mesh_phase(single: str, base: str, n_frames: int, epochs: int, single_histor
     digests = {r["digest"] for r in reports}
     if len(digests) != 1:
         raise AssertionError("the mesh's replicas ended with different parameters or statistics")
+    solves = {tuple(e["digest"] for e in r["solve_log"]) for r in reports}
+    if len(solves) != 1 or not reports[0]["solve_log"]:
+        raise AssertionError("the mesh's ranks ended an LM solve with different SolverParams")
+    if not all((e["all_reduces"] > 0) == (e["stage"] != "normalize")
+               for r in reports for e in r["solve_log"]):
+        raise AssertionError("a step solve of the mesh ran unsharded, or a normalize solve "
+                             "sharded")
+    for r, rep in enumerate(reports):
+        log, st = rep["solve_log"], rep["stats"]
+        print(f"mesh rank {r} solves: {st['pose_opt_s']:.3f} s (the cold solve "
+              f"{st['pose_opt_first_s']:.3f} s), {len(log)} LM solves, "
+              f"{sum(e['outer'] for e in log)} outer steps, {sum(e['cg'] for e in log)} CG "
+              f"iterations, {sum(e['all_reduces'] for e in log)} all-reduces, "
+              f"{sum(e['all_reduce_s'] for e in log):.3f} s in them (the cold solve's "
+              f"{sum(e['all_reduces'] for e in log if e['stage'] != 'warm')})")
+    print(f"mesh solves: every rank solved its share of the constraints; SolverParams equal "
+          f"on the {MESH_RANKS} ranks after each of {len(reports[0]['solve_log'])} LM solves")
     import torch
 
     from robust_cvd_tpu_torch.parallel.mesh import Mesh
@@ -2711,6 +2944,9 @@ def main() -> int:
         n_params = sum(p.numel() for p in MidasNet().parameters())
     adam_entries = {e["name"]: e for e in adam_phase(n_params, args.seed)}
     solver_phase(args.seed)
+    sharded_solve_check()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as base:
+        io_engine_check(base, seed=args.seed)
     step_phase(args.seed)
     eval_check(args.seed)
     raft_device_check(args.seed)

@@ -6,6 +6,11 @@ reference's on-disk contract (frame_%06d.raw, disparity-encoded depth .raw
 files, flow/flow_%06d_%06d.raw, flow_mask/mask_%06d_%06d.png,
 flow_list.json), so the two packages read and write the same folders.
 Stage code moves what it needs to the device.
+
+color_down and the depth streams are read as whole clips, and depth
+streams written as whole clips, through the thread-pooled IO engine
+(native/io_engine.cpp) where the JAX package uses it
+(`read_f32_frames`, `write_f32_frames`).
 """
 
 from __future__ import annotations
@@ -20,6 +25,26 @@ import numpy as np
 from ..camera import CameraState
 from . import raw
 from .frames import VideoMeta, load_frames_txt
+
+
+def read_f32_frames(paths) -> np.ndarray:
+    """Same-shape float32 `.raw` files as one (N, rows, cols[, channels])
+    array, through the IO engine; the first file's header sets the shape.
+    A file of another type or shape, or a short one, raises IOError."""
+    from .. import native
+
+    rows, cols, cvt = native.read_raw_header(paths[0])
+    if cvt & 7 != 5:  # CV_32F
+        raise IOError(f"{paths[0]} is not float32 (cv type {cvt})")
+    return native.read_raw_batch(paths, rows, cols, (cvt >> 3) + 1, np.float32)
+
+
+def write_f32_frames(paths, frames: np.ndarray) -> None:
+    """(N, rows, cols[, channels]) float32 as one `.raw` file a frame,
+    through the IO engine (the bytes of raw.save_raw_float32_image)."""
+    from .. import native
+
+    native.write_raw_batch(paths, np.asarray(frames, np.float32))
 
 
 def frame_name(i: int, ext: str) -> str:
@@ -169,14 +194,10 @@ class VideoStore:
 
     def load_color_down(self) -> np.ndarray:
         if self.color_down is None:
-            self.color_down = np.stack(
-                [
-                    raw.load_raw_float32_image(
-                        pjoin(self.base_dir, "color_down", frame_name(i, ".raw"))
-                    )
-                    for i in range(self.num_frames)
-                ]
-            )
+            self.color_down = read_f32_frames([
+                pjoin(self.base_dir, "color_down", frame_name(i, ".raw"))
+                for i in range(self.num_frames)
+            ])
         return self.color_down
 
     def load_color_full(self) -> np.ndarray:
@@ -208,11 +229,8 @@ class VideoStore:
     def load_depth_stream(self, stream: str) -> np.ndarray:
         if stream not in self.depth_streams:
             d = self.depth_dir(stream)
-            disparity = np.stack(
-                [
-                    raw.load_raw_float32_image(pjoin(d, frame_name(i, ".raw")))
-                    for i in range(self.num_frames)
-                ]
+            disparity = read_f32_frames(
+                [pjoin(d, frame_name(i, ".raw")) for i in range(self.num_frames)]
             )
             self.depth_streams[stream] = raw.disparity_to_depth(disparity)
         return self.depth_streams[stream]
@@ -223,8 +241,8 @@ class VideoStore:
         d = self.depth_dir(stream)
         os.makedirs(d, exist_ok=True)
         disparity = raw.depth_to_disparity(np.asarray(depth))
-        for i in range(self.num_frames):
-            raw.save_raw_float32_image(pjoin(d, frame_name(i, ".raw")), disparity[i])
+        write_f32_frames([pjoin(d, frame_name(i, ".raw")) for i in range(self.num_frames)],
+                         disparity)
         self.depth_streams[stream] = np.asarray(depth)
 
     def duplicate_depth_stream(self, src: str, dst: str) -> None:

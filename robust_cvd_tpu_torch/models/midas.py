@@ -414,8 +414,9 @@ def depth_apply(net: MidasNet, images: torch.Tensor) -> torch.Tensor:
 
 
 class MidasV2Adapter:
-    """Model adapter: requirements + the network (reference
-    monodepth/midas_v2_model.py class attributes)."""
+    """Model adapter: requirements + the network + batched whole-clip
+    inference (reference monodepth/midas_v2_model.py class attributes and
+    estimate_depth). Registered as `midas2` (models/registry.py)."""
 
     align = 32
     learning_rate = 1e-6
@@ -423,3 +424,18 @@ class MidasV2Adapter:
 
     def __init__(self, net: MidasNet | None = None):
         self.net = MidasNet() if net is None else net
+
+    def estimate_depth(self, images: torch.Tensor, scales=None) -> torch.Tensor:
+        """images: (B, H, W, 3) in [0, 1] on the net's device -> depth
+        (B, H, W), in eval mode (running BatchNorm statistics) without
+        gradients; `scales` divides the disparity first."""
+        training = self.net.training
+        self.net.eval()
+        try:
+            with torch.no_grad():
+                if scales is None:
+                    return depth_apply(self.net, images)
+                x = normalize_images(images).permute(0, 3, 1, 2).contiguous()
+                return disparity_to_depth(self.net(x) / scales)
+        finally:
+            self.net.train(training)

@@ -1,8 +1,10 @@
-"""Host C++ helpers for constraint building, loaded through ctypes.
+"""Host C++ helpers, loaded through ctypes: constraint building
+(`sampling.cpp`) and the batched `.raw` IO engine (`io_engine.cpp`).
 
-`sampling.cpp` is a copy of robust_cvd_tpu/native/sampling.cpp. It is built
-with g++ at first use into `_build/native/` (listed in .gitignore). A failed
-build raises: the port has no Python fallback for these loops.
+Both sources are copies of the JAX package's (robust_cvd_tpu/native/). Each
+is built with g++ at first use into `_build/native/` (listed in
+.gitignore). A failed build raises: the port has no Python fallback for
+these loops, and a file the IO engine cannot read or write raises IOError.
 """
 
 from __future__ import annotations
@@ -17,26 +19,35 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "sampling.cpp")
 _BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build", "native")
 _SO = os.path.join(_BUILD_DIR, "_sampling.so")
+_IO_SRC = os.path.join(_DIR, "io_engine.cpp")
+_IO_SO = os.path.join(_BUILD_DIR, "_io_engine.so")
 
 _lib = None
+_io_lib = None
+
+
+def _build(src: str, so: str, *flags: str) -> ctypes.CDLL:
+    """`src` compiled into the shared library `so` unless it is up to date,
+    then opened."""
+    if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", *flags, src, "-o", tmp],
+            capture_output=True,
+            text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {src} failed:\n{proc.stderr}")
+        os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
+    return ctypes.CDLL(so)
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{_SO}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp],
-            capture_output=True,
-            text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"building {_SRC} failed:\n{proc.stderr}")
-        os.replace(tmp, _SO)  # atomic: a concurrent build never sees half a file
-    lib = ctypes.CDLL(_SO)
+    lib = _build(_SRC, _SO)
     i32p = ctypes.POINTER(ctypes.c_int32)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     f32p = ctypes.POINTER(ctypes.c_float)
@@ -156,3 +167,93 @@ def stamp_disks(xs: np.ndarray, ys: np.ndarray, w: int, h: int, radius: int) -> 
         _ptr(out, ctypes.c_uint8),
     )
     return out.astype(bool)
+
+
+# -- the batched .raw IO engine (io_engine.cpp) ---------------------------------
+
+
+def _load_io() -> ctypes.CDLL:
+    global _io_lib
+    if _io_lib is not None:
+        return _io_lib
+    lib = _build(_IO_SRC, _IO_SO, "-pthread")
+    c = ctypes
+    u8p, i64p, i32p = c.POINTER(c.c_uint8), c.POINTER(c.c_int64), c.POINTER(c.c_int32)
+    lib.read_raw_batch.argtypes = [
+        c.POINTER(c.c_char_p), c.c_int64, c.c_int32, c.c_int32, c.c_int32,
+        u8p, c.c_int64, c.c_int32, i64p,
+    ]
+    lib.read_raw_batch.restype = c.c_int
+    lib.write_raw_batch.argtypes = [
+        c.POINTER(c.c_char_p), c.c_int64, c.c_int32, c.c_int32, c.c_int32,
+        c.c_uint64, u8p, c.c_int64, c.c_int32, i64p,
+    ]
+    lib.write_raw_batch.restype = c.c_int
+    lib.read_raw_header.argtypes = [c.c_char_p, i32p, i32p, i32p]
+    lib.read_raw_header.restype = c.c_int
+    _io_lib = lib
+    return lib
+
+
+def _paths_array(paths):
+    enc = [os.fsencode(p) for p in paths]
+    return (ctypes.c_char_p * len(enc))(*enc), enc  # `enc` keeps the bytes alive
+
+
+def _threads(nthreads: int) -> int:
+    return nthreads if nthreads > 0 else min(16, os.cpu_count() or 1)
+
+
+def _batch(fn, verb: str, paths, *args) -> None:
+    """One thread-pooled engine call over `paths`; IOError names the first
+    file it failed on."""
+    arr, _keep = _paths_array(paths)
+    bad = ctypes.c_int64(-1)
+    if fn(arr, len(paths), *args, ctypes.byref(bad)) != 0:
+        idx = int(bad.value)
+        name = paths[idx] if 0 <= idx < len(paths) else "?"
+        raise IOError(f"native raw batch {verb} failed at {name}")
+
+
+def read_raw_batch(paths, rows: int, cols: int, channels: int, dtype=np.float32,
+                   nthreads: int = 0) -> np.ndarray:
+    """Thread-pooled read of same-shape `.raw` files into one contiguous
+    (N, rows, cols[, channels]) array. A missing, short or mismatched file
+    raises IOError."""
+    from ..io.raw import cv_type
+
+    dtype = np.dtype(dtype)
+    shape = (len(paths), rows, cols) + (() if channels == 1 else (channels,))
+    out = np.empty(shape, dtype)
+    if paths:
+        _batch(_load_io().read_raw_batch, "read", paths, rows, cols,
+               cv_type(dtype, channels), _ptr(out, ctypes.c_uint8),
+               rows * cols * channels * dtype.itemsize, _threads(nthreads))
+    return out
+
+
+def write_raw_batch(paths, data: np.ndarray, nthreads: int = 0) -> None:
+    """Thread-pooled write of (N, rows, cols[, channels]) as one `.raw`
+    file a frame, byte for byte what io/raw.py's save_raw_image writes. A
+    file that cannot be written raises IOError."""
+    from ..io.raw import cv_type
+
+    data = np.ascontiguousarray(data)
+    n, rows, cols = data.shape[:3]
+    channels = 1 if data.ndim == 3 else data.shape[3]
+    if n != len(paths):
+        raise ValueError(f"{n} frames for {len(paths)} paths")
+    pixel = channels * data.dtype.itemsize
+    if paths:
+        _batch(_load_io().write_raw_batch, "write", paths, rows, cols,
+               cv_type(data.dtype, channels), pixel, _ptr(data, ctypes.c_uint8),
+               rows * cols * pixel, _threads(nthreads))
+
+
+def read_raw_header(path):
+    """(rows, cols, cv_type) of one `.raw` file; IOError where it has none."""
+    r, c, t = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
+    if _load_io().read_raw_header(os.fsencode(path), ctypes.byref(r), ctypes.byref(c),
+                                  ctypes.byref(t)) != 0:
+        raise IOError(f"cannot read raw header of {path}")
+    return int(r.value), int(c.value), int(t.value)

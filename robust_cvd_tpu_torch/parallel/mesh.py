@@ -8,10 +8,13 @@ here each rank is a process of its own, launched by torchrun
 
 or by a caller that passes `init_mesh` an init method, rank and size. The
 pipeline uses the mesh where the JAX package does: the initial depth's
-frames, the flow stage's pairs, Mask R-CNN's frames and the fine-tune's
+frames, the flow stage's pairs, Mask R-CNN's frames, the fine-tune's
 batches (training/fine_tune.py: the global batch of batch_size pairs a
-rank, BatchNorm statistics, loss and gradient over all of it). Parameters
-are replicated: every rank holds the whole net and takes the same steps.
+rank, BatchNorm statistics, loss and gradient over all of it) and the pose
+solve's constraints (`shard_pose_inputs`: every rank solves on its share
+of the pairs and triplets, solver/lm.py sums the normal equations over the
+ranks). Parameters are replicated: every rank holds the whole net and the
+whole SolverParams and takes the same steps.
 
 Devices are explicit: `cuda:LOCAL_RANK` where every local rank has a card
 of its own, with the `nccl` backend; the CPU with `gloo`. Ranks that share
@@ -117,12 +120,17 @@ class Mesh:
         the incoming gradients over the ranks)."""
         return _AllReduceSum.apply(t, self)
 
-    def all_reduce_mean_(self, t: torch.Tensor) -> torch.Tensor:
-        """t replaced in place by its mean over the ranks; every rank gets
+    def all_reduce_sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """t replaced in place by its sum over the ranks; every rank gets
         the same bits."""
         with self.timed():
             dist.all_reduce(t, group=self.group)
-        return t.div_(self.size)
+        return t
+
+    def all_reduce_mean_(self, t: torch.Tensor) -> torch.Tensor:
+        """t replaced in place by its mean over the ranks; every rank gets
+        the same bits."""
+        return self.all_reduce_sum_(t).div_(self.size)
 
     def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """t replaced in place by rank `src`'s."""
@@ -134,6 +142,33 @@ class Mesh:
         nccl = self.device.type == "cuda" and dist.get_backend(self.group) == "nccl"
         with self.timed():
             dist.barrier(group=self.group, device_ids=[self.device.index] if nccl else None)
+
+
+def _shard_rows(rows, mesh: Mesh):
+    """This rank's block of a NamedTuple of row-aligned tensors (a
+    ConstraintData or TripletData), the pad rows' weight set to 0."""
+    n = int(rows.weight.shape[0])
+    dev = rows.weight.device
+    idx = torch.as_tensor(mesh.shard(n), device=dev)
+    out = type(rows)(*[t[idx] for t in rows])
+    pad = torch.arange(idx.numel(), device=dev) + mesh.rank * idx.numel() >= n
+    return out._replace(weight=out.weight.masked_fill(pad[:, None], 0.0))
+
+
+def shard_pose_inputs(inputs, mesh: Mesh):
+    """This rank's share of a solver problem (the JAX package's
+    shard_pose_inputs): the constraint pairs (P) and triplets (T) padded
+    to a multiple of the mesh size with copies of row 0 whose weight is 0
+    (a skipped constraint, reference lib/PoseOptimizer.cpp:1177-1193),
+    then cut into the contiguous blocks of `Mesh.shard`; the per-frame
+    tensors stay whole. The result records the mesh (`inputs.mesh`), so
+    that pose_opt sums the ranks' residual products."""
+    trip = inputs.triplets
+    return inputs._replace(
+        data=_shard_rows(inputs.data, mesh),
+        triplets=None if trip is None else _shard_rows(trip, mesh),
+        mesh=mesh,
+    )
 
 
 def is_writer(mesh: Optional[Mesh]) -> bool:

@@ -12,7 +12,8 @@ reconstruction (`colmap_dense/metadata.npz` with `depth_colmap_dense/`)
 are imported as extra depth streams ahead of the estimated one
 (io/importers.py); their cameras seed `optimize_poses`. `filter_depth`
 (the post filter) runs the flow-guided filter of pipeline/processor.py on
-the newest stream.
+the newest stream. Depth streams are read and written as whole clips
+through the IO engine (io/store.py::read_f32_frames, write_f32_frames).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 
 from ..config import PipelineConfig
 from ..device import resolve_device
-from ..io.store import VideoStore
+from ..io.store import VideoStore, read_f32_frames, write_f32_frames
 from ..solver import constraints as C
 from ..solver import pose_opt
 from ..solver.pose_opt import PoseOptInputs
@@ -106,12 +107,11 @@ class PoseOptimizer:
         """(N, h, w) depth of a registered stream's disparity .raw files."""
         from ..io import raw
 
-        return np.stack([
-            raw.disparity_to_depth(
-                raw.load_raw_float32_image(pjoin(ref.dir, "depth", f"frame_{i:06d}.raw"))
-            )
-            for i in range(self.store.num_frames)
-        ])
+        return raw.disparity_to_depth(read_f32_frames(self._frame_paths(ref.dir)))
+
+    def _frame_paths(self, stream_dir: str) -> List[str]:
+        return [pjoin(stream_dir, "depth", f"frame_{i:06d}.raw")
+                for i in range(self.store.num_frames)]
 
     # -- depth-stream registry (reference pose_optimization.py:242-326) -----
 
@@ -123,10 +123,7 @@ class PoseOptimizer:
 
         d = pjoin(self.streams[-1].dir, "depth")
         os.makedirs(d, exist_ok=True)
-        for i in range(self.store.num_frames):
-            raw.save_raw_float32_image(
-                pjoin(d, f"frame_{i:06d}.raw"), raw.depth_to_disparity(depth[i])
-            )
+        write_f32_frames(self._frame_paths(self.streams[-1].dir), raw.depth_to_disparity(depth))
         if self.cfg.ft.save_depth_visualization:
             from ..utils.visualization import visualize_depth_dir
 
@@ -172,11 +169,7 @@ class PoseOptimizer:
         filtered = Processor(self.store, device=self.device).flow_guided_filter_array(
             depth, ProcessorParams(op=Op.FLOW_GUIDED_FILTER, frame_radius=radius)
         ).cpu().numpy()
-        d = pjoin(dst.dir, "depth")
-        for i in range(self.store.num_frames):
-            raw.save_raw_float32_image(
-                pjoin(d, f"frame_{i:06d}.raw"), raw.depth_to_disparity(filtered[i])
-            )
+        write_f32_frames(self._frame_paths(dst.dir), raw.depth_to_disparity(filtered))
         self.save()
         return dst
 

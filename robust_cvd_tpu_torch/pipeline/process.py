@@ -19,9 +19,11 @@ On a data mesh (parallel/mesh.py, e.g. under torchrun) every rank runs the
 pipeline on the processor's device, which must be the mesh's: the initial
 depth, flow, Mask R-CNN and fine-tune stages share their work over the
 ranks; frame extraction, the downscales, motion segmentation, the
-constraint build (PoseOptimizer, which also solves) and stage_timings.json
-are rank 0's, with barriers around them. Every rank writes the same
-result tree as one process would, together.
+constraint build and its flow_constraints.dat, and stage_timings.json
+are rank 0's, with barriers around them. Every rank then reads the
+constraints and solves on its share of them (the solver sums over the
+ranks). Every rank writes the same result tree as one process would,
+together.
 """
 
 from __future__ import annotations
@@ -234,17 +236,22 @@ class DatasetProcessor:
     def fine_tune(self, store: VideoStore, depth: np.ndarray):
         """Constraints, cold solve and test-time training on `store`, from
         the initial depth (N, h, w); returns the FineTuner. On a mesh, rank
-        0 builds the constraints and solves, and every rank trains."""
+        0 builds the constraints and writes flow_constraints.dat, the other
+        ranks read them from it, and every rank solves on its share of them
+        (shard_pose_inputs) and trains; rank 0 writes."""
         from ..training.fine_tune import FineTuner, build_clip_data
         from ..utils.experiment import make_tag
 
         t_setup = time.perf_counter()
         cfg = self.cfg
         mesh = self._mesh()
-        pose = None
-        if pmesh.is_writer(mesh):
-            pose = PoseOptimizer(cfg, store, f"depth_{cfg.model_type}", device=self.device)
+        writer = pmesh.is_writer(mesh)
+        stream = f"depth_{cfg.model_type}"
+        if writer:
+            pose = PoseOptimizer(cfg, store, stream, device=self.device)
         pmesh.barrier(mesh)
+        if not writer:  # rank 0's flow_constraints.dat
+            pose = PoseOptimizer(cfg, store, stream, device=self.device)
         flow_list = store.load_flow_list()
         for (i, j, _r) in flow_list:
             store.load_flow(i, j)
@@ -263,7 +270,11 @@ class DatasetProcessor:
             {k: np.asarray(v, np.float32) for k, v in store.flow_masks.items()},
             cfg.min_mask_ratio, use_temporal, ref_disp=ref_disp, device=self.device,
         )
-        inputs = pose._make_inputs() if pose is not None else None
+        inputs = pose._make_inputs()
+        if mesh is not None:
+            # the solve sharded over the constraints, as the JAX package's
+            # (its pipeline/pose.py: shard_pose_inputs where a mesh exists)
+            inputs = pmesh.shard_pose_inputs(inputs, mesh)
         adapter = self._depth_model()
 
         # experiment dir R{range}_{ops}_{model}/<tag> (reference
@@ -271,7 +282,7 @@ class DatasetProcessor:
         ft_dir = pjoin(self.out_dir(store.num_frames), make_tag(cfg))
         os.makedirs(ft_dir, exist_ok=True)
         tuner = FineTuner(
-            cfg, adapter, clip, inputs, pose=pose, out_dir=ft_dir, mesh=mesh,
+            cfg, adapter, clip, inputs, pose=pose if writer else None, out_dir=ft_dir, mesh=mesh,
             pose_state_override=pose_state_override, device=self.device,
         )
         tuner.stats["setup_s"] = time.perf_counter() - t_setup

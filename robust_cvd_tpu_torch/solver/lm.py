@@ -26,6 +26,18 @@ Rademacher probes. The probes come from a torch.Generator, not from
 jax.random, so the estimate agrees with the JAX package's only where it
 does not depend on the probes (a diagonal operator) and in distribution.
 
+Sharded solves: where the residual function covers one rank's share of
+the constraints (parallel/mesh.py::shard_pose_inputs), `all_reduce` sums a
+flat buffer over the ranks in place. The solver sums the cost and J^T r
+(one buffer), each CG matvec's J^T J v, the exact diagonal with its pose
+blocks or the Hutchinson probes' products (all probes in one buffer), and
+the trial cost: one all-reduce a CG iteration and three an outer step
+beyond them (two without a preconditioner). Everything else (CG's
+vectors, lambda, the accept flag, every exit) is computed from summed
+values on replicated parameters, so every rank takes the same decisions
+and holds the same bits; Hutchinson probes come from the same seed on
+every rank.
+
 Masking (fix_poses etc., reference lib/PoseOptimizer.cpp:915-948) is a 0/1
 SolverParams applied inside the CG operator. Lower bounds (scale >= 0 in
 depth normalization, lib/PoseOptimizer.cpp:1105-1115) are enforced by
@@ -66,6 +78,10 @@ class LMResult(NamedTuple):
     cg_iterations: int  # CG iterations over all outer steps
     syncs: int  # device -> host reads of a flag or cost
     lam: torch.Tensor
+    all_reduces: int = 0  # sums over the ranks (0 without all_reduce)
+    # the Hutchinson probes' generator state after the solve (None: no
+    # probes); equal states from seed 17 mean the same probes were drawn
+    probe_state: torch.Tensor | None = None
 
 
 # -- parameter leaves ---------------------------------------------------------
@@ -96,6 +112,16 @@ def _taxpy(alpha, x, y):
 
 def _tmul(a, b):
     return [x * y for x, y in zip(a, b)]
+
+
+def _summed(all_reduce, tensors):
+    """`tensors` summed over the ranks through one all-reduce of one flat
+    buffer; `tensors` themselves without all_reduce."""
+    if all_reduce is None:
+        return tensors
+    flat = all_reduce(torch.cat([t.reshape(-1) for t in tensors]))
+    parts = flat.split([t.numel() for t in tensors])
+    return [x.view_as(t) for x, t in zip(parts, tensors)]
 
 
 def _cg(matvec: Callable, b, iters: int, rtol: float = 0.01, minv=None):
@@ -139,11 +165,14 @@ def _cg(matvec: Callable, b, iters: int, rtol: float = 0.01, minv=None):
     return x, it, syncs
 
 
-def _diag_estimate(matvec: Callable, template, gen: torch.Generator, probes: int):
+def _diag_estimate(matvec: Callable, template, gen: torch.Generator, probes: int,
+                   total: Callable | None = None):
     """Hutchinson estimate of the matvec operator's diagonal with Rademacher
-    probes drawn from `gen`: diag ~ E[(A z) * z], z in {+-1}. Clipped to a
-    positive floor, 1e-6 of the mean magnitude, so that the inverse stays
-    defined for parameters the problem barely touches."""
+    probes drawn from `gen`: diag ~ E[(A z) * z], z in {+-1}. `total`, if
+    given, maps the sum of the probes' products to the operator's (a
+    sharded solve: matvec is this rank's share, `total` sums over the ranks
+    once). Clipped to a positive floor, 1e-6 of the mean magnitude, so that
+    the inverse stays defined for parameters the problem barely touches."""
     acc = None
     for _ in range(probes):
         z = [
@@ -152,6 +181,8 @@ def _diag_estimate(matvec: Callable, template, gen: torch.Generator, probes: int
         ]
         az = _tmul(matvec(z), z)
         acc = az if acc is None else _taxpy(1.0, az, acc)
+    if total is not None:
+        acc = total(acc)
     d = [x * (1.0 / probes) for x in acc]
     total = sum(x.abs().sum() for x in d)
     count = sum(x.numel() for x in d)
@@ -161,11 +192,12 @@ def _diag_estimate(matvec: Callable, template, gen: torch.Generator, probes: int
 
 def _one_outer_step(
     weighted_residual_fn, robust_residual_fn, project_fn, cfg: LMConfig,
-    params, lam, mask, aux, diag_fn=None, gen=None,
+    params, lam, mask, aux, diag_fn=None, gen=None, all_reduce=None,
 ):
     """One LM outer iteration: frozen IRLS weights, CG on the damped normal
     equations, trial step with accept/reject and lambda update. `gen` draws
-    the Hutchinson probes (cfg.precond_probes > 0 and no diag_fn). Returns
+    the Hutchinson probes (cfg.precond_probes > 0 and no diag_fn);
+    `all_reduce` sums over the ranks (see the module docstring). Returns
     (params, lam, cost, accept, rel_decrease, start cost, CG iterations,
     host syncs); the scalars stay on the device."""
     if robust_residual_fn is None:
@@ -188,11 +220,14 @@ def _one_outer_step(
     def j(v):
         return torch.func.jvp(res_w, tuple(x0), tuple(v))[1]
 
-    cost = 0.5 * torch.dot(r0, r0)
-    g = _tmul(jt(r0), mask_l)
+    cost, *g = _summed(all_reduce, [0.5 * torch.dot(r0, r0)] + jt(r0))
+    g = _tmul(g, mask_l)
+
+    def jtj(v):  # this rank's J^T J v on the masked parameters
+        return jt(j(_tmul(v, mask_l)))
 
     def matvec(v):
-        return _taxpy(lam, v, _tmul(jt(j(_tmul(v, mask_l))), mask_l))
+        return _taxpy(lam, v, _tmul(_summed(all_reduce, jtj(v)), mask_l))
 
     minv = None
     if diag_fn is not None:
@@ -204,31 +239,38 @@ def _one_outer_step(
         if type(d) is tuple:
             # block Jacobi: the damped, masked 6x6 pose block of each frame
             # is inverted; every other parameter stays elementwise
-            d, blocks = d
+            *dl, blocks = _summed(all_reduce, _leaves(d[0]) + [d[1]])
             mp = mask.pose
             bm = blocks * mp[:, :, None] * mp[:, None, :] + lam * torch.eye(
                 blocks.shape[-1], dtype=blocks.dtype, device=blocks.device
             )
             binv = torch.linalg.inv(bm)  # PSD blocks + lam*I: invertible
-            elem = [1.0 / (dd * m + lam) for dd, m in zip(_leaves(d), mask_l)]
+            elem = [1.0 / (dd * m + lam) for dd, m in zip(dl, mask_l)]
 
             def minv(r, _binv=binv, _elem=elem):
                 z = _tmul(r, _elem)
                 z[0] = torch.einsum("nij,nj->ni", _binv, r[0])  # leaf 0 = pose
                 return z
         else:
-            minv = [1.0 / (dd * m + lam) for dd, m in zip(_leaves(d), mask_l)]
+            dl = _summed(all_reduce, _leaves(d))
+            minv = [1.0 / (dd * m + lam) for dd, m in zip(dl, mask_l)]
     elif cfg.precond_probes > 0:
         # fresh probes every outer step: `gen` advances with each draw (the
-        # JAX package folds lam's bits into its key instead)
-        d = _diag_estimate(matvec, x0, gen, cfg.precond_probes)
+        # JAX package folds lam's bits into its key instead). The probes'
+        # J^T J products are summed over the ranks in one all-reduce, then
+        # masked and damped as in matvec (z * z = 1).
+        def damped(acc):
+            return [x * m + lam * cfg.precond_probes
+                    for x, m in zip(_summed(all_reduce, acc), mask_l)]
+
+        d = _diag_estimate(jtj, x0, gen, cfg.precond_probes, total=damped)
         minv = [1.0 / x for x in d]
     dx, cg_it, syncs = _cg(matvec, [-t for t in g], cfg.cg_iters, minv=minv)
     trial = _rebuild(params, [p + d * m for p, d, m in zip(x0, dx, mask_l)])
     if project_fn is not None:
         trial = project_fn(trial)
     r_new = res_w(*_leaves(trial))
-    new_cost = 0.5 * torch.dot(r_new, r_new)
+    new_cost, = _summed(all_reduce, [0.5 * torch.dot(r_new, r_new)])
 
     accept = new_cost < cost
     out = _rebuild(params, [
@@ -253,6 +295,7 @@ def solve(
     aux=None,
     project_fn: Callable | None = None,
     diag_fn: Callable | None = None,
+    all_reduce: Callable | None = None,
 ) -> LMResult:
     """Minimize 0.5 * || weighted_residual_fn(params, irls_w, aux) ||^2.
 
@@ -267,6 +310,9 @@ def solve(
       blocks) for a Jacobi preconditioner; without it and with
       cfg.precond_probes > 0, Hutchinson probes from a torch.Generator on
       the parameters' device, seeded with 17 for each solve, estimate it.
+    all_reduce(flat) -> flat summed over the ranks in place, for residual
+      functions over one rank's share of the constraints (None: one
+      process).
     """
     params = params0
     device = params.pose.device
@@ -274,6 +320,15 @@ def solve(
     gen = None
     if diag_fn is None and cfg.precond_probes > 0:
         gen = torch.Generator(device=device).manual_seed(17)
+    reduces = 0
+    if all_reduce is not None:
+        reduce_sum = all_reduce
+
+        def all_reduce(t):
+            nonlocal reduces
+            reduces += 1
+            return reduce_sum(t)
+
     cost = cost0 = None
     steps = cg_total = syncs = 0
     chunks = max(1, -(-cfg.max_outer // cfg.chunk))
@@ -283,7 +338,7 @@ def solve(
         for _ in range(cfg.chunk):
             params, lam, cost, accept, rel, start, cg_it, cg_syncs = _one_outer_step(
                 weighted_residual_fn, robust_residual_fn, project_fn, cfg,
-                params, lam, mask, aux, diag_fn, gen,
+                params, lam, mask, aux, diag_fn, gen, all_reduce,
             )
             if cost0 is None:
                 cost0 = start
@@ -304,7 +359,8 @@ def solve(
     cost, cost0 = torch.stack([cost, cost0]).tolist()
     return LMResult(
         params=params, cost=cost, cost0=cost0, iterations=steps,
-        cg_iterations=cg_total, syncs=syncs + 1, lam=lam,
+        cg_iterations=cg_total, syncs=syncs + 1, lam=lam, all_reduces=reduces,
+        probe_state=None if gen is None else gen.get_state(),
     )
 
 

@@ -15,13 +15,25 @@ pose_optimization.py:177-240):
 
 The solver runs on the device of its inputs, in full float32 (no TF32).
 Every LM solve can be recorded in a `log` list: one dict per solve with
-its stage, grid, start and final cost, outer steps, CG iterations and host
-syncs.
+its stage, grid, start and final cost, outer steps, CG iterations, host
+syncs and, with Hutchinson probes, a digest of the probes' generator
+state after the solve (`probes`).
+
+Inputs from parallel/mesh.py::shard_pose_inputs carry their mesh: every
+rank solves each step on its share of the constraints, rank 0 alone adds
+the per-frame residuals (StageAux.per_frame), and each LM solve sums the
+ranks' products through the mesh's all-reduce (solver/lm.py), so every
+rank ends with the same SolverParams. Depth normalization reads only
+per-frame data and runs whole on every rank, with no all-reduce. On a
+mesh the log also holds each solve's all-reduces, their host seconds
+(`Mesh.stats`) and a digest of the solved SolverParams (`params_digest`)
+for comparing the ranks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from typing import NamedTuple
 
@@ -47,6 +59,9 @@ class PoseOptInputs(NamedTuple):
     # (N, h, w) dynamic masks (white/True = static) for
     # AdaptiveDeformationCost (reference lib/PoseOptimizer.cpp:559-656)
     dynamic_mask: object = None
+    # the data mesh whose ranks share the constraints (shard_pose_inputs);
+    # None: `data` and `triplets` are the whole problem
+    mesh: object = None
 
 
 def scale_reg_grid_locs(opt: PoseOptParams, aspect: float, device=None) -> torch.Tensor:
@@ -122,9 +137,25 @@ def _v_focal(opt: PoseOptParams, aspect: float) -> float:
     return opt.focal_long / aspect if aspect >= 1.0 else opt.focal_long
 
 
-def _record(log, stage: str, params: SolverParams, out: lm.LMResult) -> None:
+def params_digest(p: SolverParams) -> str:
+    """sha256 of the bytes of every present tensor of `p`: equal digests
+    mean bitwise equal parameters."""
+    h = hashlib.sha256()
+    for t in lm._leaves(p):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _lm_solve(inputs: PoseOptInputs, log, stage: str, params: SolverParams, *args,
+              sharded: bool = True, **kw):
+    """lm.solve(*args, **kw), recorded in `log`; `sharded`: summed over the
+    ranks of inputs.mesh (each rank's residuals cover its share)."""
+    mesh = inputs.mesh
+    coll0 = 0.0 if mesh is None else mesh.stats["collective_s"]
+    reduce_sum = mesh.all_reduce_sum_ if mesh is not None and sharded else None
+    out = lm.solve(*args, all_reduce=reduce_sum, **kw)
     if log is not None:
-        log.append({
+        entry = {
             "stage": stage,
             "grid": tuple(params.depth_grid.shape[1:]),
             "cost0": out.cost0,
@@ -132,7 +163,15 @@ def _record(log, stage: str, params: SolverParams, out: lm.LMResult) -> None:
             "outer": out.iterations,
             "cg": out.cg_iterations,
             "syncs": out.syncs,
-        })
+        }
+        if out.probe_state is not None:
+            entry["probes"] = hashlib.sha256(out.probe_state.numpy().tobytes()).hexdigest()
+        if mesh is not None:
+            entry["digest"] = params_digest(out.params)
+            entry["all_reduces"] = out.all_reduces
+            entry["all_reduce_s"] = mesh.stats["collective_s"] - coll0
+        log.append(entry)
+    return out
 
 
 def _normalize_res_fn(cfg: SceneConfig, sqrt_scale: float, deform_w: float):
@@ -184,7 +223,7 @@ def _make_cfg(opt: PoseOptParams, inputs: PoseOptInputs, params: SolverParams,
 
 
 def _aux(opt: PoseOptParams, inputs: PoseOptInputs, use_triplets: bool,
-         cfg: SceneConfig) -> StageAux:
+         cfg: SceneConfig, sharded: bool = True) -> StageAux:
     device = inputs.median_depth.device
     locs = scale_reg_grid_locs(opt, inputs.aspect, device)
     taps = residuals.build_dense_taps(cfg, inputs.data, inputs.median_depth, locs)
@@ -203,6 +242,7 @@ def _aux(opt: PoseOptParams, inputs: PoseOptInputs, use_triplets: bool,
         triplets=inputs.triplets if use_triplets else None,
         taps=taps,
         adaptive_weights=adaptive,
+        per_frame=not sharded or inputs.mesh is None or inputs.mesh.rank == 0,
     )
 
 
@@ -213,6 +253,8 @@ def normalize_depth(
     the scale regularizer constrains each frame's transform — pinning each
     frame's median source depth to disparity 1 — then the FIRST frame's
     transform is copied to all frames. Scale handles are bounded below by 0.
+    Its residuals are per frame only, so on a mesh every rank solves it
+    whole, with no all-reduce.
     """
     cfg = _make_cfg(opt, inputs, params)
     wres = _normalize_res_fn(
@@ -220,12 +262,12 @@ def normalize_depth(
         opt.deformation_regularization_initial,
     )
     mask = lm.make_mask(params, fix_poses=True, fix_focal=True, fix_spatial=True)
-    out = lm.solve(
+    out = _lm_solve(
+        inputs, log, "normalize", params,
         wres, None, params, mask, _lm_config(opt),
-        aux=_aux(opt, inputs, use_triplets=False, cfg=cfg),
-        project_fn=_project_nonneg,
+        aux=_aux(opt, inputs, use_triplets=False, cfg=cfg, sharded=False),
+        project_fn=_project_nonneg, sharded=False,
     )
-    _record(log, "normalize", params, out)
     solved = out.params
     if opt.normalize_depth_from_first_frame:
         solved = solved._replace(
@@ -274,11 +316,11 @@ def _solve_step(
         fix_depth=opt.fix_depth_transforms,
         fix_spatial=fix_spatial,
     )
-    out = lm.solve(
+    out = _lm_solve(
+        inputs, log, stage, params,
         res_fn, _robust_fn(cfg), params, mask, _lm_config(opt),
         aux=_aux(opt, inputs, use_smooth, cfg=cfg), diag_fn=diag_fn,
     )
-    _record(log, stage, params, out)
     return out.params
 
 

@@ -376,7 +376,13 @@ class StageAux(NamedTuple):
 
     adaptive_weights: (N, E) per-edge AdaptiveDeformationCost terms
     (reference lib/PoseOptimizer.cpp:559-656); None selects the uniform
-    DeformationCost path."""
+    DeformationCost path.
+
+    per_frame: whether this rank adds the per-frame residuals (the scale,
+    deformation, focal and position regularizers). In a solve sharded over
+    the constraints (parallel/mesh.py::shard_pose_inputs) `data` and
+    `triplets` are this rank's share and only rank 0 adds the per-frame
+    parts, so that the sum over the ranks counts each residual once."""
 
     data: ConstraintData
     median_depth: torch.Tensor
@@ -384,6 +390,7 @@ class StageAux(NamedTuple):
     triplets: TripletData | None = None
     adaptive_weights: torch.Tensor | None = None
     taps: DenseTaps | None = None
+    per_frame: bool = True
 
 
 def _sqrt_weight(w: float) -> float:
@@ -410,6 +417,8 @@ def build_residual_fn(
         if use_triplets:
             r_sm = smoothness_residuals(params, cfg, aux.triplets)
             parts.append((r_sm * torch.sqrt(aux.triplets.weight)[..., None]).reshape(-1))
+        if not aux.per_frame:
+            return torch.cat(parts)
 
         if sqrt_scale_reg > 0.0 and not opt.fix_depth_transforms:
             r_scale = scale_reg_residuals(
@@ -714,8 +723,11 @@ def build_diag_fn(
                         "pc,pcg->pg", sq_sh_t[..., k], t_dtaps[k] ** 2
                     ))
 
+        # ---- the per-frame parts, on one rank of a sharded solve ------------
+        per_frame = aux.per_frame
+
         # ---- scale regularizer: rank-1 tap contraction ---------------------
-        if sqrt_scale_reg > 0.0 and not opt.fix_depth_transforms:
+        if per_frame and sqrt_scale_reg > 0.0 and not opt.fix_depth_transforms:
             W = taps.scale_reg  # (N, G, Gd)
             med = aux.median_depth
             depth = med[:, None] * torch.einsum("ngk,nk->ng", W, drows)
@@ -734,7 +746,7 @@ def build_diag_fn(
                 d_shift = d_shift + torch.einsum("ng,ngk->nk", dr_ddepth ** 2, W ** 2)
 
         # ---- deformation regularizers: per-frame Jacobians -----------------
-        if depth_deform_weight > 0.0:
+        if per_frame and depth_deform_weight > 0.0:
             def frame_def(row, wmul):
                 return xforms.depth_deform_residuals(row.reshape(dshape)) * wmul
 
@@ -753,15 +765,15 @@ def build_diag_fn(
                 js = torch.func.vmap(torch.func.jacrev(frame_shdef))(shrows)
                 d_shift = d_shift + (js ** 2).sum(1)
 
-        if opt.spatial_deformation_regularization > 0.0:
+        if per_frame and opt.spatial_deformation_regularization > 0.0:
             # residual == the handles themselves * weight: constant diagonal
             d_sgrid = d_sgrid + opt.spatial_deformation_regularization ** 2
 
         # ---- focal / position regularizers ---------------------------------
-        if sqrt_focal_reg > 0.0 and cfg.intr_opt != "Fixed":
+        if per_frame and sqrt_focal_reg > 0.0 and cfg.intr_opt != "Fixed":
             d_focal = d_focal + sqrt_focal_reg ** 2
 
-        if sqrt_pos_reg > 0.0:
+        if per_frame and sqrt_pos_reg > 0.0:
             jp = torch.func.jacrev(
                 lambda pose: position_reg_residuals(params._replace(pose=pose)) * sqrt_pos_reg
             )(params.pose)  # (N-2, 3, N, 6)

@@ -47,9 +47,11 @@ batch-sharded step. A step's global batch is batch_size pairs a rank
 epoch's permutation, BatchNorm's train-mode statistics, the loss and the
 gradient are those of the global batch (models/midas.py
 global_batch_stats, FlatAdam.step), and the trailing partial batch runs
-whole on every rank. Rank 0 runs the pose solves and broadcasts the pose
-state; depth inference shards the frames and gathers them; only rank 0
-writes depth streams, video.dat, checkpoints, eval files and tensorboard.
+whole on every rank. Every rank runs the pose solves on its share of the
+constraints (parallel/mesh.py::shard_pose_inputs; the solver sums over
+the ranks, so every rank holds the same SolverParams); depth inference
+shards the frames and gathers them; only rank 0 writes depth streams,
+video.dat, checkpoints, eval files and tensorboard.
 
 Tensorboard: with ft.save_tensorboard, the tuner logs the JAX package's
 scalars, histograms and images through torch.utils.tensorboard under
@@ -345,8 +347,9 @@ class FineTuner:
     recon=colmap, `pose_state_override` holds the fixed COLMAP geometry (on
     `device`) and no pose solve runs. `device` is where training runs ("cuda" unless the
     caller asks for "cpu"); `clip` and `pose_inputs` must live there. With
-    `mesh` (the data mesh, on `device`), only rank 0 needs `pose_inputs`
-    and `pose`: it solves and writes; the other ranks pass None."""
+    `mesh` (the data mesh, on `device`), `pose_inputs` is this rank's
+    share of the constraints (shard_pose_inputs) and only rank 0 needs
+    `pose`, which writes; the other ranks pass None."""
 
     def __init__(self, cfg: PipelineConfig, adapter, clip: ClipData,
                  pose_inputs: Optional[PoseOptInputs], seed: int = 0,
@@ -438,26 +441,16 @@ class FineTuner:
     def optimize_poses(self):
         """Cold solve the first time, warm re-solves after that
         (opt.warm_start); every LM solve is appended to `solve_log`. On a
-        mesh, rank 0 solves and broadcasts the pose state."""
+        mesh every rank solves on its share of the constraints."""
         t0 = time.perf_counter()
-        if is_writer(self.mesh):
-            self.solver_params = pose_opt.run(
-                self.cfg.opt, self.pose_inputs, initial=self.solver_params,
-                log=self.solve_log,
-            )
-            self.pose_state = PoseState(*(t.contiguous() for t in pose_state_from_solver(
-                self.solver_params, tuple(self.clip.images.shape[1:3]),
-                self.pose_inputs.aspect, self.clip.depth_orig,
-            )))
-        else:
-            n, h, w = self.clip.depth_orig.shape
-            self.pose_state = PoseState(*(
-                torch.empty(shape, device=self.device)
-                for shape in ((n, 3, 4), (n, 4), (n, h, w), (n, h, w, 2))
-            ))
-        if self.mesh is not None:
-            for t in self.pose_state:
-                self.mesh.broadcast_(t)
+        self.solver_params = pose_opt.run(
+            self.cfg.opt, self.pose_inputs, initial=self.solver_params,
+            log=self.solve_log,
+        )
+        self.pose_state = pose_state_from_solver(
+            self.solver_params, tuple(self.clip.images.shape[1:3]),
+            self.pose_inputs.aspect, self.clip.depth_orig,
+        )
         self._sync()
         dt = time.perf_counter() - t0
         self.stats["pose_opt_s"] += dt
@@ -834,7 +827,8 @@ class FineTuner:
         """Re-infer the clip's depth with the current weights, then refresh
         the solver inputs: per-frame median depth and the constraints'
         source depths by nearest sampling, all on the device (on a mesh,
-        rank 0's, the one that solves)."""
+        each rank its share of the constraints, from the whole clip's
+        depth that infer_depth gathers)."""
         t0 = time.perf_counter()
         self.current_depth = self.infer_depth()
         if self.pose_inputs is not None:

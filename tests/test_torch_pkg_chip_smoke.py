@@ -138,8 +138,32 @@ def test_mesh_phase_on_cpu(pipeline_run, capsys):
     out = capsys.readouterr().out
     for line in ("mesh: 2 ranks on cpu over gloo", "10 flows max|err|", "masks differ in 0 of",
                  "mesh rank 1 epoch 0:", "one process epoch", "mesh replicas: one digest",
+                 "mesh rank 1 solves:", "mesh solves: every rank solved its share",
                  "stage mesh_phase_s"):
         assert line in out, line
+
+
+def test_sharded_solve_check_on_cpu(monkeypatch, capsys):
+    """The sharded-solve check with the CPU standing in for the card, on a
+    cut schedule (1 step, 4 LM steps; the ranks are spawned, so the cut
+    reaches them through the options they are given): the static scene in
+    this process and on 2 spawned gloo ranks; it raises on failure."""
+    monkeypatch.setattr(chip_smoke, "SHARDED_OPT",
+                        dict(chip_smoke.SHARDED_OPT, num_steps=1, lm_max_outer=4))
+    chip_smoke.sharded_solve_check(device="cpu")
+    out = capsys.readouterr().out
+    for line in ("sharded solve rank 1:", "sharded solve: 2 ranks over gloo on cpu",
+                 "SolverParams equal on every rank after each of 2 LM solves"):
+        assert line in out, line
+
+
+def test_io_engine_check_on_cpu(monkeypatch, capsys, tmp_path):
+    monkeypatch.setattr(chip_smoke, "H", 24)
+    monkeypatch.setattr(chip_smoke, "W", 40)
+    chip_smoke.io_engine_check(str(tmp_path), n=10)
+    out = capsys.readouterr().out
+    assert "io engine: a 10-frame 24x40 depth stream" in out
+    assert "files equal byte for byte" in out
 
 
 def test_mask_rcnn_phase_on_cpu(monkeypatch, capsys, tmp_path):

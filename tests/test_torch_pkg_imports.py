@@ -49,9 +49,9 @@ def test_import_loads_no_jax():
         env=env, timeout=300,
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    assert len(_port_modules()) >= 52
+    assert len(_port_modules()) >= 53
     for m in ("quality", "io.colmap", "io.importers", "ops.filters", "solver.tracks",
-              "pipeline.processor", "parallel.mesh"):
+              "pipeline.processor", "parallel.mesh", "models.registry", "native"):
         assert f"robust_cvd_tpu_torch.{m}" in _port_modules()
 
 
@@ -70,7 +70,7 @@ def test_sources_import_no_jax_or_jax_package():
         "chip_smoke.py", "tools/sweep_corner_cuda.py", "tools/time_kernels_cuda.py",
         "tools/flow_path_cuda.py", "tools/pipeline_cuda.py", "tools/quality_cuda.py",
         "tools/processor_cuda.py", "tools/mask_rcnn_cuda.py", "tools/mesh_cuda.py",
-        "tools/filter_ties_cuda.py")]
+        "tools/filter_ties_cuda.py", "tools/sharded_solve_cuda.py")]
     for root, _, names in os.walk(PKG_DIR):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = []

@@ -19,7 +19,10 @@ JAX mesh run's; every depth stream within 1e-3 relative of the JAX mesh
 run's; the poses after the last warm solve within 1e-3 of their largest
 magnitude; the initial depth stream within 1e-5 of max|ref| of the
 single-process run's and the masks and flow_list.json equal to its; the
-two ranks' flat parameters and BatchNorm buffers bitwise equal; a step in
+two ranks' flat parameters and BatchNorm buffers bitwise equal, and so
+their SolverParams after every LM solve (each rank solves each step on
+its half of the constraints, solver/lm.py sums over the ranks; the
+normalize solve runs whole on each rank, with no all-reduce); a step in
 which one rank's loss alone is non-finite skipped by both ranks, parameters
 and step count unchanged. Beside it: shard/all_gather_leading against the
 JAX package's _pad_leading for 1, 5, 6 and 7 items over 1-4 ranks, and the
@@ -220,6 +223,22 @@ def test_replicas_are_bitwise_equal(runs):
     assert r0["flat"].tobytes() == r1["flat"].tobytes()
     assert r0["buffers"].tobytes() == r1["buffers"].tobytes()
     assert int(r0["count"]) == int(r1["count"]) == r0["steps"].sum()
+
+
+def test_every_rank_solves_its_share_to_the_same_bits(runs):
+    r0, r1 = runs["rank"]
+    assert len(r0["digests"]) > 0 and r0["digests"].tolist() == r1["digests"].tolist()
+    assert r0["pose"].tobytes() == r1["pose"].tobytes()
+    # the normalize solve reads per-frame data only and runs whole on each
+    # rank; every other solve sums over the ranks
+    step = r0["stages"] != "normalize"
+    assert step.any() and (r0["all_reduces"][step] > 0).all()
+    assert not r0["all_reduces"][~step].any()
+    assert r0["all_reduces"].tolist() == r1["all_reduces"].tolist()
+    # each rank holds half of the pairs (the JAX mesh's are padded to an
+    # even count)
+    n_pairs = int(runs["jtuner"].pose_inputs.data.pair.shape[0])
+    assert int(r0["pairs"]) == int(r1["pairs"]) == -(-n_pairs // 2)
 
 
 def test_a_rank_with_a_non_finite_loss_makes_every_rank_skip(runs):

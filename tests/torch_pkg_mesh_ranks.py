@@ -49,8 +49,9 @@ def slice_rank(rank: int, size: int, store_file: str, clip: str, out_dir: str, o
     rank's loss alone is non-finite (rank 1's masks set to inf), and a
     FlatAdam step in which only rank 1 passes an infinite loss, must be
     skipped by every rank. Saves the flat parameters, the BatchNorm
-    buffers, the epochs' losses, the guard's flags and (rank 0) the
-    poses."""
+    buffers, the epochs' losses, the guard's flags, the poses and the
+    SolverParams digest and all-reduces of every LM solve (every rank
+    solves on its share of the constraints)."""
     from robust_cvd_tpu_torch import config
     from robust_cvd_tpu_torch.io.store import VideoStore
     from robust_cvd_tpu_torch.models import midas
@@ -95,8 +96,82 @@ def slice_rank(rank: int, size: int, store_file: str, clip: str, out_dir: str, o
             steps=np.array([h["steps"] for h in tuner.history]),
             guard=np.array([bool(ok_step), bool(ok_adam), torch.equal(opt_.flat, flat),
                             int(opt_.count) == count, bool(torch.isfinite(loss))]),
-            pose=(tuner.solver_params.pose.numpy() if rank == 0 else np.zeros(0)),
+            pose=tuner.solver_params.pose.numpy(),
+            stages=np.array([e["stage"] for e in tuner.solve_log]),
+            digests=np.array([e["digest"] for e in tuner.solve_log]),
+            all_reduces=np.array([e["all_reduces"] for e in tuner.solve_log]),
+            pairs=int(tuner.pose_inputs.data.pair.shape[0]),
             current_depth=tuner.current_depth.numpy(),
         )
     finally:
         destroy_mesh()
+
+
+def solve_scenes(scenes_file: str, mesh=None) -> dict:
+    """pose_opt.run on every scene of tests/test_torch_pkg_sharded_solve.py
+    (`scenes_file`, an .npz of numpy arrays and a JSON list of scenes), on
+    this rank's shard (shard_pose_inputs) with a mesh, else on the whole
+    problem. Returns, per scene, the poses, depth grid, the share of the
+    triplets' weights on this rank (empty without triplets) and, for each
+    LM solve, its cost0, cost, outer steps, CG iterations and all-reduces,
+    the SolverParams digest (on a mesh) and the digest of the Hutchinson
+    probes' generator state ("" without probes)."""
+    import json
+
+    from robust_cvd_tpu_torch.config import PoseOptParams
+    from robust_cvd_tpu_torch.parallel.mesh import shard_pose_inputs
+    from robust_cvd_tpu_torch.solver import pose_opt
+    from robust_cvd_tpu_torch.solver.residuals import ConstraintData, TripletData
+
+    arrays = np.load(scenes_file)
+    scenes = json.loads(str(arrays["scenes"]))
+
+    def tensors(prefix, fields):
+        return {f: torch.from_numpy(arrays[f"{prefix}/{f}"]) for f in fields}
+
+    out = {}
+    for s in scenes:
+        name = s["name"]
+        trip = None
+        if s["triplets"]:
+            trip = TripletData(**tensors(f"{name}/trip", TripletData._fields))
+        inputs = pose_opt.PoseOptInputs(
+            data=ConstraintData(**tensors(f"{name}/data", ConstraintData._fields)),
+            median_depth=torch.from_numpy(arrays[f"{name}/median"]), aspect=s["aspect"],
+            num_frames=s["num_frames"], triplets=trip,
+        )
+        if mesh is not None:
+            inputs = shard_pose_inputs(inputs, mesh)
+        log = []
+        sp = pose_opt.run(PoseOptParams(**s["opt"]), inputs,
+                          focal=torch.from_numpy(arrays[f"{name}/focal"]), log=log)
+        out[name] = dict(
+            pose=sp.pose.numpy(), depth_grid=sp.depth_grid.numpy(),
+            trip_weight=(np.zeros((0, 0), np.float32) if inputs.triplets is None
+                         else inputs.triplets.weight.numpy()),
+            stage=np.array([e["stage"] for e in log]),
+            cost0=np.array([e["cost0"] for e in log]),
+            cost=np.array([e["cost"] for e in log]),
+            outer=np.array([e["outer"] for e in log]),
+            cg=np.array([e["cg"] for e in log]),
+            all_reduces=np.array([e.get("all_reduces", 0) for e in log]),
+            digests=np.array([e.get("digest", "") for e in log]),
+            probes=np.array([e.get("probes", "") for e in log]),
+        )
+    return out
+
+
+def solve_rank(rank: int, size: int, store_file: str, scenes_file: str, out_dir: str) -> None:
+    """One rank of a sharded solve of every scene (solve_scenes), saved to
+    solve_<size>_rank<r>.npz; size 1: one process without a mesh."""
+    if size == 1:
+        torch.set_num_threads(1)
+        res = solve_scenes(scenes_file)
+    else:
+        mesh = _init(rank, size, store_file)
+        try:
+            res = solve_scenes(scenes_file, mesh)
+        finally:
+            destroy_mesh()
+    np.savez(os.path.join(out_dir, f"solve_{size}_rank{rank}.npz"),
+             **{f"{k}/{f}": v for k, r in res.items() for f, v in r.items()})
