@@ -66,12 +66,9 @@ Phases, each of which raises on failure (exit code 1):
    launches equal to the train steps with none skipped, the cold solve
    below its start and every warm solve at or below its start, finite
    outputs, and parameters that moved.
-7. profile: torch.profiler over 5 steady-state train steps of that path:
-   the 10 device kernels with the most time, the share of index, gather and
-   scatter kernels (the loss stack's sampler), the device idle share.
-8. RAFT, card vs CPU: seeded RAFT at float32 (no TF32), 3 iterations, 2
+7. RAFT, card vs CPU: seeded RAFT at float32 (no TF32), 3 iterations, 2
    pairs at 64x96 (RAFT_TOL); run after the train-step check.
-9. flow path: a second synthetic 100-frame clip written as the pipeline
+8. flow path: a second synthetic 100-frame clip written as the pipeline
    makes it (color_full PNGs at 224x384, color_down 224x384 .raw,
    color_flow 256x384 .png by pipeline/video.py), RAFT (bf16, 20
    iterations, seeded random weights saved as <clip>/models/raft-things.pth
@@ -84,16 +81,12 @@ Phases, each of which raises on failure (exit code 1):
    in flow_list.json, corner launches on the path, and that H_BA maps the
    image centre within 1 px of the true shift in at least the share of
    pairs the JAX package reaches on the CPU (JAX_REGISTRATION_SHARE).
-10. exact-flow masks: the mask program on make_clip's exact flows
+9. exact-flow masks: the mask program on make_clip's exact flows
    reproduces its in-bounds masks bit for bit; register_pairs card vs CPU
    on 4 pairs (H within 1e-3); RAFT bf16 vs float32 on one full chunk
    (printed); the corner kernel checked and timed at the registration's
    shape (32, 256, 384).
-11. flow profile: torch.profiler over one steady-state 16-pair chunk of
-   compute_flow: ms per chunk, the top 10 device kernels, the device time
-   of registration, RAFT, the correlation lookup and the post-process, the
-   device idle share.
-12. pipeline: the whole schedule through the port's CLI,
+10. pipeline: the whole schedule through the port's CLI,
    robust_cvd_tpu_torch.main.main(["--path", clip]) with every default but
    --num_epochs (--epochs, 3 by default: PIPELINE_EPOCHS says why), on a
    third clip of
@@ -114,35 +107,35 @@ Phases, each of which raises on failure (exit code 1):
    pipeline_s_per_frame (without the post filter, as before it) and
    post_filter_s, then profiles the filter alone at full width (seconds,
    device ms, peak memory, bytes bounds).
-13. quality: the four golden-scene gates of robust_cvd_tpu_torch/quality.py
+11. quality: the four golden-scene gates of robust_cvd_tpu_torch/quality.py
    at full size (tiny=False: 8 frames at 96x128) on the card: static,
    dynamic with the spatial-warp recovery, and contaminated constraints with
    and without the exclusion. Each gap-closed value must reach the JAX
    package's value on the CPU (JAX_GATES) less GATE_SLACK; without the
    exclusion the contamination gate must stay EXCLUSION_MARGIN below its
    value with it. Prints each value beside the JAX package's.
-14. eval, card vs CPU: eval_pair_losses of the small tuner of phase 4 on the
+12. eval, card vs CPU: eval_pair_losses of the small tuner of phase 4 on the
    card and on the CPU (no TF32), per-pair totals and parts within 1e-4
    relative.
-15. validate: FineTuner.validate on phase 6's tuner (the pose clip, full
+13. validate: FineTuner.validate on phase 6's tuner (the pose clip, full
    width) with the eval images, the scale maps and the scene-flow
    images on: every file the JAX package writes (eval/loss_e*_iter*.json,
    depth_*, scale_*, scene_flow_*) is there and every loss is finite.
-16. processor: the 13 ops of pipeline/processor.py through
+14. processor: the 13 ops of pipeline/processor.py through
    Processor.process on the pose clip with the fine-tune phase's cameras
    (processor_phase: the filters on the whole clip and, card vs CPU, on its
    first 16 frames; compute_tracks with one corner launch and tracks that
    follow the pan; the solver ops on an 8-frame clip at full width).
-17. optimizers: one fine-tune epoch of FineTuner.run with optax.radam and
+15. optimizers: one fine-tune epoch of FineTuner.run with optax.radam and
    one with a bf16 first moment on the fine-tune phase's clip and poses:
    one launch of the kernel's mode a step, none skipped.
-18. colmap: a COLMAP model of the pose clip's known cameras (a camera
+16. colmap: a COLMAP model of the pose clip's known cameras (a camera
    moving SHIFT px a frame along x over a fronto-parallel plane) written by
    io/colmap.py's writers and converted by model_to_npz, the plane's
    disparity as depth_colmap_dense/, then DatasetProcessor.fine_tune with
    recon=colmap for 1 epoch: no solve runs, the poses are the imported
    ones, the depth moves, one Adam launch a step.
-19. mask_rcnn: on the pipeline clip after the pipeline phase, a seeded
+17. mask_rcnn: on the pipeline clip after the pipeline phase, a seeded
    detectron2-layout checkpoint whose heads are shaped on the first frame
    (mask_rcnn_state: RCNN_KEEP of its proposals score person) pickled as
    <clip>/models/mask_rcnn_R_50_FPN_3x.pkl, then
@@ -159,10 +152,10 @@ Phases, each of which raises on failure (exit code 1):
    NMS, ROIAlign, the heads, detection and the paste; the idle share).
    No CUDA kernel of the repo is on this path (models/mask_rcnn.py is
    plain PyTorch, as its JAX counterpart reaches no pallas_call).
-20. keypoints (after the RAFT check): ops/homography.py's detect_keypoints
+18. keypoints (after the RAFT check): ops/homography.py's detect_keypoints
    (one corner kernel launch) and warp_perspective on one panning frame,
    card vs CPU (keypoints_check).
-21. mesh: the whole CLI at 1 epoch on a data mesh of MESH_RANKS spawned
+19. mesh: the whole CLI at 1 epoch on a data mesh of MESH_RANKS spawned
    ranks that share the card over gloo (NCCL refuses two ranks on one
    card), each main(["--path", clip, "--num_epochs", "1", "--post_filter",
    "true"]) on a copy of the inputs of the pipeline clip's first
@@ -202,7 +195,7 @@ import numpy as np
 
 H, W = 224, 384  # color_down of the bench clip (bench.py)
 # The pose clip's length (the pose path and the phases on its clip:
-# fine-tune, profile, validate, processor, optimizers, colmap); the flow and
+# fine-tune, validate, processor, optimizers, colmap); the flow and
 # pipeline phases keep --frames. It was 100 until the script outgrew its
 # 950 s budget (978.0 s on an H100 with the processor and optimizer phases).
 POSE_CLIP_FRAMES = 50
@@ -1654,53 +1647,6 @@ def quality_phase(device: str = "cuda") -> dict:
     return res
 
 
-def profile_phase(tuner, steps: int = 5) -> None:
-    """torch.profiler over `steps` steady-state train steps of the tuner."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    n_pairs = int(tuner.clip.pair_idx.shape[0])
-    batch = tuner.cfg.ft.batch_size
-    ids = [torch.arange(s, s + batch, device="cuda") % n_pairs for s in range(steps + 2)]
-    for i in ids[:2]:  # warm-up outside the window
-        tuner.train_step(i)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in ids[2:]:  # the same steps without the profiler
-        tuner.train_step(i)
-    torch.cuda.synchronize()
-    plain_step = (time.perf_counter() - t0) / steps
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in ids[2:]:
-            tuner.train_step(i)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    kernels = _device_events(prof)
-    if not kernels:
-        print(f"profile: the profiler recorded no device time; {steps} steps took "
-              f"{wall * 1e3 / steps:.2f} ms each (host clock, synchronised); idle "
-              f"share not measured")
-        return
-    by_name = _time_by_name(kernels)
-    busy, window = _busy_us(kernels)
-    total = sum(by_name.values())
-    busy_step = busy / 1e6 / steps
-    print(f"profile: {steps} train steps, {plain_step * 1e3:.2f} ms per step unprofiled, "
-          f"{wall * 1e3 / steps:.2f} ms profiled (host clock), device busy "
-          f"{busy_step * 1e3:.2f} ms per step, {len(kernels) / steps:.0f} device events "
-          f"per step; device idle share {1 - busy / window:.4f} of the profiled "
-          f"{window / 1e3:.2f} ms kernel window, {1 - busy_step / plain_step:.4f} of the "
-          f"unprofiled step")
-    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"profile top: {t / 1e3 / steps:8.3f} ms/step {t / total:7.2%}  {name[:110]}")
-    keys = ("index", "gather", "scatter")
-    sampler = sum(t for n, t in by_name.items() if any(k in n.lower() for k in keys))
-    print(f"profile: index/gather/scatter kernels (the loss stack's bilinear sampler, its "
-          f"scatter-add backward and the step's clip gathers) {sampler / 1e3 / steps:.3f} "
-          f"ms/step, {sampler / total:.2%} of device time")
-
-
 def flow_store(base: str, n: int, seed: int) -> None:
     """A clip of panning_frames written as the pipeline makes it: color_full
     PNGs (H x W), frames.txt, color_down (.raw) and color_flow (.png)."""
@@ -1963,51 +1909,6 @@ def _busy_us(kernels):
         else:
             cur_e = max(cur_e, e0)
     return busy + cur_e - cur_s, spans[-1][1] - spans[0][0]
-
-
-def flow_profile_phase(stage, reps: int = 3) -> None:
-    """torch.profiler over one steady-state 16-pair chunk of compute_flow
-    (registration, RAFT, post-process): ms per chunk, the top device
-    kernels, the correlation lookup's share, the device idle share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    pairs = stage.sample_index_pairs(("hierarchical2",), stage.store.num_frames)
-    ims = stage.load_chunk(pairs[: stage.batch_size])
-    out_hw = stage.store.load_color_down().shape[1:3]
-    for _ in range(2):
-        stage.flow_chunk(*ims, out_hw)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        stage.flow_chunk(*ims, out_hw)
-    torch.cuda.synchronize()
-    plain = (time.perf_counter() - t0) / reps
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        stage.flow_chunk(*ims, out_hw)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    kernels = _device_events(prof)
-    if not kernels:
-        print(f"flow profile: the profiler recorded no device time; a chunk took "
-              f"{plain * 1e3:.2f} ms (host clock, synchronised); idle share not measured")
-        return
-    by_name = _time_by_name(kernels)
-    busy, window = _busy_us(kernels)
-    total = sum(by_name.values())
-    print(f"flow profile: one chunk of {stage.batch_size} pairs, {plain * 1e3:.2f} ms unprofiled "
-          f"(host clock, mean of {reps}), {wall * 1e3:.2f} ms profiled, device busy "
-          f"{busy / 1e3:.2f} ms, {len(kernels)} device kernels; device idle share "
-          f"{1 - busy / window:.4f} of the {window / 1e3:.2f} ms kernel window, "
-          f"{1 - busy / 1e3 / (plain * 1e3):.4f} of the unprofiled chunk")
-    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"flow profile top: {t / 1e3:8.3f} ms {t / total:7.2%}  {name[:110]}")
-    cpu_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
-    for rng_name in ("flow.register", "flow.raft", "raft.lookup_corr", "flow.postproc"):
-        dev = sum(getattr(e, "device_time_total", 0.0) for e in cpu_events if e.name == rng_name)
-        share = f"{dev / total:.2%} of device kernel time" if dev else "not measured"
-        print(f"flow profile range {rng_name}: device kernels {dev / 1e3:.3f} ms, {share}")
 
 
 def pipeline_clip(base: str, n: int, seed: int) -> None:
@@ -2960,7 +2861,6 @@ def main() -> int:
                                                min(2, args.epochs))
         if adam_fine_tune < 1:
             raise AssertionError("the Adam kernel was not launched on the fine-tune path")
-        profile_phase(tuner)
         validate_phase(tuner)
         launches["processor"] = processor_phase(base, tuner.solver_params, args.seed)
         adam_modes = optimizer_epochs_phase(tuner)
@@ -2977,7 +2877,6 @@ def main() -> int:
         exact_mask_check(os.path.join(base, "exact"), args.frames, args.seed)
         flow_card_checks(stage)
         corner_k["flow_path"] = corner_flow_entry(stage, launches["flow"])
-        flow_profile_phase(stage)
     del stage
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pipeline_") as base:

@@ -44,9 +44,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..device import float32_precision
+from ..utils.spans import span
 
 # COCO "dynamic object" categories: person + vehicle + animal
 # (reference dynamic_mask_generation.py:41), as [lo, hi) class ranges.
@@ -382,8 +382,8 @@ def batched_nms(boxes, scores, idxs, iou_thresh: float, valid=None):
     """Category-independent NMS via the coordinate-offset trick: each
     category's boxes move by idx * (max(boxes) + 1), the max over each
     leading batch entry."""
-    span = boxes.amax(dim=(-2, -1), keepdim=True) + 1.0
-    return nms_keep(boxes + idxs.float()[..., None] * span, scores, iou_thresh, valid=valid)
+    offset = boxes.amax(dim=(-2, -1), keepdim=True) + 1.0
+    return nms_keep(boxes + idxs.float()[..., None] * offset, scores, iou_thresh, valid=valid)
 
 
 # --------------------------------------------------------------------------
@@ -557,7 +557,7 @@ class MaskRCNN(nn.Module):
     def features(self, images) -> List[torch.Tensor]:
         """[P2..P6] of RGB images in [0, 1]: BGR, times 255, less the pixel
         mean (no division by a std)."""
-        with record_function("mask_rcnn.backbone"):
+        with span("mask_rcnn.backbone"):
             x = images.flip(1) * 255.0 - self.pixel_mean[:, None, None]
             return self.backbone(x.to(self.dtype))
 
@@ -567,7 +567,7 @@ class MaskRCNN(nn.Module):
         one batched NMS, shorter levels padded with invalid entries, which
         change no decision), then the top RPN_POST_NMS_TOPK over all
         levels, suppressed entries at -inf."""
-        with record_function("mask_rcnn.rpn"):
+        with span("mask_rcnn.rpn"):
             rpn_out = self.proposal_generator.rpn_head(feats)
             bsz = feats[0].shape[0]
             a = len(ANCHOR_RATIOS)
@@ -604,9 +604,9 @@ class MaskRCNN(nn.Module):
         """Class logits (B, R, 81) and box deltas (B, R, 320) of the
         proposals."""
         bsz, r = proposals.shape[:2]
-        with record_function("mask_rcnn.roi_align"):
+        with span("mask_rcnn.roi_align"):
             pooled = roi_align_fpn(feats, proposals, 7).reshape(bsz * r, -1, 7, 7)
-        with record_function("mask_rcnn.heads"):
+        with span("mask_rcnn.heads"):
             heads = self.roi_heads
             cls_logits, deltas = heads.box_predictor(heads.box_head(pooled))
         return cls_logits.reshape(bsz, r, -1), deltas.reshape(bsz, r, -1)
@@ -616,7 +616,7 @@ class MaskRCNN(nn.Module):
         decoding, the score threshold, the top 1000 candidates, batched NMS
         at ROI_NMS_THRESH and the top MAX_DETECTIONS."""
         cls_logits, box_deltas = self.box_outputs(feats, proposals)
-        with record_function("mask_rcnn.detect"):
+        with span("mask_rcnn.detect"):
             bsz, r = proposals.shape[:2]
             nc = self.num_classes
             probs = torch.softmax(cls_logits, dim=-1)[..., :-1]  # drop background
@@ -644,9 +644,9 @@ class MaskRCNN(nn.Module):
     def mask_probs(self, feats, boxes, classes):
         """(B, D, 28, 28) mask probabilities of each box's class."""
         bsz, d = boxes.shape[:2]
-        with record_function("mask_rcnn.roi_align"):
+        with span("mask_rcnn.roi_align"):
             pooled = roi_align_fpn(feats, boxes, 14).reshape(bsz * d, -1, 14, 14)
-        with record_function("mask_rcnn.heads"):
+        with span("mask_rcnn.heads"):
             logits = self.roi_heads.mask_head(pooled)  # (B*D, 80, 28, 28)
             sel = torch.gather(logits, 1, classes.reshape(-1, 1, 1, 1).expand(-1, 1, 28, 28))
         return torch.sigmoid(sel).reshape(bsz, d, 28, 28)
@@ -697,7 +697,7 @@ def dynamic_mask_from_detections(det: Dict, hw: Tuple[int, int],
     for lo, hi in _DYNAMIC_RANGES:
         dyn |= (cls >= lo) & (cls < hi)
     sel = dyn & (det["scores"] > score_thresh)
-    with record_function("mask_rcnn.paste"):
+    with span("mask_rcnn.paste"):
         pasted = paste_masks(det["masks"], det["boxes"], hw)
         return (pasted & sel[..., None, None]).any(dim=-3)
 

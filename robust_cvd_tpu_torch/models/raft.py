@@ -36,7 +36,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.profiler import record_function
+
+from ..utils.spans import span
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -337,7 +338,7 @@ class RAFT(nn.Module):
         coords1 = coords0
         mask = None
         for it in range(self.iters):
-            with record_function("raft.lookup_corr"):
+            with span("raft.lookup_corr"):
                 corr = lookup_corr(pyramid, coords1, self.corr_radius, self.dtype)
             net, mask, delta = self.update_block(
                 net, inp, corr, coords1 - coords0, with_mask=it == self.iters - 1

@@ -29,7 +29,6 @@ together.
 from __future__ import annotations
 
 import os
-import time
 import traceback
 from os.path import join as pjoin
 
@@ -41,6 +40,7 @@ from ..device import resolve_device
 from ..io.store import VideoStore
 from ..parallel import mesh as pmesh
 from ..utils.experiment import StageTracer
+from ..utils.spans import span
 from .depth import compute_initial_depth
 from .flow import FlowStage
 from .pose import PoseOptimizer
@@ -238,11 +238,21 @@ class DatasetProcessor:
         the initial depth (N, h, w); returns the FineTuner. On a mesh, rank
         0 builds the constraints and writes flow_constraints.dat, the other
         ranks read them from it, and every rank solves on its share of them
-        (shard_pose_inputs) and trains; rank 0 writes."""
+        (shard_pose_inputs) and trains; rank 0 writes. The tuner's build
+        is the span `fine_tune.setup`, its seconds `stats["setup_s"]`."""
+        with span("fine_tune.setup") as setup:
+            tuner = self._tuner(store, depth)
+        tuner.stats["setup_s"] = setup.seconds
+        tuner.run()
+        return tuner
+
+    def _tuner(self, store: VideoStore, depth: np.ndarray):
+        """The FineTuner of `store` and the initial depth: the pose
+        optimizer and its constraints, the clip on the device, the depth
+        model and the experiment dir."""
         from ..training.fine_tune import FineTuner, build_clip_data
         from ..utils.experiment import make_tag
 
-        t_setup = time.perf_counter()
         cfg = self.cfg
         mesh = self._mesh()
         writer = pmesh.is_writer(mesh)
@@ -281,13 +291,10 @@ class DatasetProcessor:
         # depth_fine_tuning.py:213-215)
         ft_dir = pjoin(self.out_dir(store.num_frames), make_tag(cfg))
         os.makedirs(ft_dir, exist_ok=True)
-        tuner = FineTuner(
+        return FineTuner(
             cfg, adapter, clip, inputs, pose=pose if writer else None, out_dir=ft_dir, mesh=mesh,
             pose_state_override=pose_state_override, device=self.device,
         )
-        tuner.stats["setup_s"] = time.perf_counter() - t_setup
-        tuner.run()
-        return tuner
 
     def _colmap_fixed_poses(self, store: VideoStore, shape):
         """recon=colmap inputs (reference depth_fine_tuning.py:296-318,

@@ -85,6 +85,7 @@ from ..solver import pose_opt, xforms
 from ..solver.pose_opt import PoseOptInputs
 from ..solver.residuals import SolverParams
 from ..solver.xforms import GridSpec
+from ..utils.spans import span
 from . import losses
 from .losses import LossMeta
 from .optimizer import FlatAdam
@@ -274,21 +275,31 @@ def train_step(net, optimizer: FlatAdam, loss_opt: LossParams,
     pairs of the global batch, whose BatchNorm statistics, loss and
     gradient the step takes. Returns device tensors: the loss (the global
     batch's), this rank's loss parts, and the guard flag. Nothing is read
-    back to the host."""
-    frames, images, meta = _batch(batch_ids, clip, ps, use_temporal)
-    optimizer.zero_grad()
-    with global_batch_stats(net, optimizer.mesh):
-        depth = _train_mode_depth(net, images, frames, clip, ps)
-    total, parts = losses.joint_loss(
-        loss_opt, images, clip.depth_orig[frames], depth, meta,
-        params=optimizer.leaf, params_init=optimizer.init,
-    )
-    total.backward()
-    optimizer.check_aliasing()
-    loss = total.detach().clone()
-    ok = optimizer.step(loss)
-    commit_batch_stats(net, ok)
-    return loss, {name: v.detach() for name, v in parts.items()}, ok
+    back to the host.
+
+    The step is the span `train.step` (utils/spans.py), its phases the
+    spans `train.batch`, `train.forward`, `train.loss`, `train.backward`
+    and `train.optimizer`: the host's time enqueuing each."""
+    with span("train.step"):
+        with span("train.batch"):
+            frames, images, meta = _batch(batch_ids, clip, ps, use_temporal)
+        with span("train.forward"):
+            optimizer.zero_grad()
+            with global_batch_stats(net, optimizer.mesh):
+                depth = _train_mode_depth(net, images, frames, clip, ps)
+        with span("train.loss"):
+            total, parts = losses.joint_loss(
+                loss_opt, images, clip.depth_orig[frames], depth, meta,
+                params=optimizer.leaf, params_init=optimizer.init,
+            )
+        with span("train.backward"):
+            total.backward()
+            optimizer.check_aliasing()
+        with span("train.optimizer"):
+            loss = total.detach().clone()
+            ok = optimizer.step(loss)
+            commit_batch_stats(net, ok)
+        return loss, {name: v.detach() for name, v in parts.items()}, ok
 
 
 def eval_losses(net, flat: torch.Tensor, init: torch.Tensor, loss_opt: LossParams,

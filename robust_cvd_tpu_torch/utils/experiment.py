@@ -3,20 +3,20 @@
 Port of robust_cvd_tpu/utils/experiment.py: make_loss_str and make_tag
 (tag grammar of reference loss/loss_params.py:114-144 and
 depth_fine_tuning.py:194-204), so that both packages name experiment
-directories alike, and StageTracer, whose profile traces come from
-torch.profiler.
+directories alike, and StageTracer, whose stages are spans of
+utils/spans.py.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
-import time
 from typing import Dict, List
 
 import torch
 
 from ..config import LossParams, PipelineConfig
+from .spans import span
 
 
 def make_loss_str(loss: LossParams, exp_tag: str = "short") -> str:
@@ -59,41 +59,29 @@ def make_tag(cfg: PipelineConfig) -> str:
 
 class StageTracer:
     """Per-stage wall-clock spans (the reference prints perf_counter times,
-    depth_fine_tuning.py:228-602), saved as a JSON timeline; with
-    `profile_dir`, each span also writes a torch.profiler trace there.
+    depth_fine_tuning.py:228-602), saved as a JSON timeline. Each stage is
+    also a span of utils/spans.py, the parent of the spans inside it.
 
     `device` is where the stages run: on a CUDA device a span synchronizes
     it before it stops the clock, so a stage's seconds hold the device work
     it queued."""
 
-    def __init__(self, profile_dir: str | None = None, device=None):
+    def __init__(self, device=None):
         self.spans: List[Dict] = []
-        self.profile_dir = profile_dir
         self.device = torch.device(device) if device is not None else None
 
     @contextlib.contextmanager
     def span(self, name: str, **meta):
-        t0 = time.perf_counter()
-        prof = None
-        if self.profile_dir:
-            from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-            activities = [ProfilerActivity.CPU]
-            if self.device is not None and self.device.type == "cuda":
-                activities.append(ProfilerActivity.CUDA)
-            prof = profile(activities=activities,
-                           on_trace_ready=tensorboard_trace_handler(self.profile_dir, name))
-            prof.__enter__()
+        sp = span(name, **meta)
         try:
-            yield
+            with sp:
+                try:
+                    yield
+                finally:
+                    if self.device is not None and self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
         finally:
-            if self.device is not None and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            if prof is not None:
-                prof.__exit__(None, None, None)
-            self.spans.append(
-                {"name": name, "sec": time.perf_counter() - t0, **meta}
-            )
+            self.spans.append({"name": name, "sec": sp.seconds, **meta})
 
     def summary(self) -> Dict[str, float]:
         out: Dict[str, float] = {}

@@ -420,12 +420,13 @@ def test_cli_missing_mask_rcnn_weights_fall_back(runs, tmp_path, monkeypatch, ca
 
 def test_stage_tracer_matches_jax(tmp_path):
     """The same spans give the same summary and JSON layout in both
-    packages' StageTracer; with profile_dir the port writes a torch.profiler
-    trace for each span."""
+    packages' StageTracer; the port's stages are also spans of
+    utils/spans.py, whose durations are the tracer's seconds."""
     from robust_cvd_tpu.utils.experiment import StageTracer as JTracer
+    from robust_cvd_tpu_torch.utils import spans
     from robust_cvd_tpu_torch.utils.experiment import StageTracer
 
-    tracers = (StageTracer(profile_dir=str(tmp_path / "prof"), device="cpu"), JTracer())
+    tracers = (StageTracer(device="cpu"), JTracer())
     for tracer in tracers:
         for name in ("a", "b", "a"):
             with tracer.span(name, pairs=3):
@@ -438,4 +439,7 @@ def test_stage_tracer_matches_jax(tmp_path):
     tj, jj = (json.load(open(tmp_path / f)) for f in ("t.json", "j.json"))
     assert list(tj) == list(jj) == ["spans", "summary"]
     assert [sorted(s) for s in tj["spans"]] == [sorted(s) for s in jj["spans"]]
-    assert len(os.listdir(tmp_path / "prof")) == 3
+    ring = spans.recent("a", 2) + spans.recent("b", 1)
+    assert [r["attrs"] for r in ring] == [{"pairs": 3}] * 3
+    assert sorted((r["t1_ns"] - r["t0_ns"]) / 1e9 for r in ring) == sorted(
+        s["sec"] for s in t.spans)

@@ -6,9 +6,9 @@ Builds the kernels, checks RAFT on the card against the CPU, then drives
 the flow phases of chip_smoke.py on a fresh synthetic clip: FlowStage over
 the hierarchical2 pairs with its checks (registration against the truth
 among them), the exact-flow mask check, registration card vs CPU, RAFT
-bf16 vs float32, the corner kernel checked and timed at the registration's
-shape, and the flow-chunk profile. About a minute; the pose and fine-tune
-paths are left out.
+bf16 vs float32, and the corner kernel checked and timed at the
+registration's shape. About a minute; the pose and fine-tune paths are
+left out.
 """
 
 from __future__ import annotations
@@ -46,7 +46,6 @@ def main() -> int:
         chip_smoke.exact_mask_check(os.path.join(base, "exact"), args.frames, args.seed)
         chip_smoke.flow_card_checks(stage)
         print(json.dumps(chip_smoke.corner_flow_entry(stage, launches)))
-        chip_smoke.flow_profile_phase(stage)
     print(f"total_s {time.perf_counter() - t0:.3f}")
     return 0
 
