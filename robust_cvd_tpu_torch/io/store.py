@@ -90,12 +90,17 @@ def save_png_color(path, img: np.ndarray) -> None:
     Image.fromarray(img, mode="RGB").save(path)
 
 
-def load_png_color(path) -> np.ndarray:
-    """RGB PNG as float32 in [0, 1], after the reference's EXIF rotations."""
+def load_png_color_u8(path) -> np.ndarray:
+    """RGB PNG as (H, W, 3) uint8, after the reference's EXIF rotations."""
     from PIL import Image
 
     with Image.open(path) as im:
-        return np.asarray(_exif_rotate(im).convert("RGB"), np.float32) / 255.0
+        return np.asarray(_exif_rotate(im).convert("RGB"))
+
+
+def load_png_color(path) -> np.ndarray:
+    """RGB PNG as float32 in [0, 1], after the reference's EXIF rotations."""
+    return load_png_color_u8(path).astype(np.float32) / 255.0
 
 
 class VideoStore:

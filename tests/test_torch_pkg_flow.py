@@ -234,3 +234,99 @@ def test_png_color_io_matches_jax(tmp_path):
     full = tstore.VideoStore.open(str(tmp_path)).load_color_full()
     np.testing.assert_array_equal(
         full, jstore.VideoStore.open(str(tmp_path)).load_color_full())
+
+
+def _png_clip(base, n, orientation=1):
+    """n frames of seeded uint8 noise as color_flow PNGs of 12x20 (EXIF
+    orientation `orientation`) and frames.txt."""
+    from PIL import Image
+
+    rng = np.random.default_rng(6)
+    os.makedirs(pjoin(base, "color_flow"))
+    for i in range(n):
+        exif = Image.Exif()
+        exif[274] = orientation
+        Image.fromarray(rng.integers(0, 256, (12, 20, 3), np.uint8), "RGB").save(
+            pjoin(base, "color_flow", tstore.frame_name(i, ".png")), exif=exif)
+    save_frames_txt(pjoin(base, "frames.txt"), 20, 12, [i / 30 for i in range(n)])
+    return tstore.VideoStore.open(base)
+
+
+def _frame_loop(stage, chunk):
+    """The loader as a loop: every padded pair's PNGs through
+    load_png_color, stacked."""
+    padded = chunk + chunk[-1:] * (stage.batch_size - len(chunk))
+    flow_dir = pjoin(stage.store.base_dir, "color_flow")
+    return [np.stack([tstore.load_png_color(pjoin(flow_dir, tstore.frame_name(p[k], ".png")))
+                      for p in padded]) for k in (0, 1)]
+
+
+@pytest.mark.parametrize("chunk", [
+    [(0, 1), (1, 0), (0, 2), (2, 0), (1, 2), (2, 1)],  # pairs that repeat frames
+    [(3, 5), (5, 3), (4, 5)],  # a short chunk, padded
+    [(6, 2)],  # one pair
+])
+def test_load_chunk_equals_the_frame_loop(chunk, tmp_path):
+    """load_chunk decodes each distinct frame once and returns, bit for
+    bit, the loop's frames; its decode span counts the frames and the
+    pool's threads."""
+    from robust_cvd_tpu_torch.utils.spans import recent
+
+    stage = tflow.FlowStage(_png_clip(str(tmp_path), 7), device="cpu", batch_size=6)
+    got = stage.load_chunk(chunk)
+    for a, b in zip(got, _frame_loop(stage, chunk)):
+        assert a.dtype == torch.float32 and a.shape == (6, 12, 20, 3)
+        assert np.array_equal(a.numpy(), b)
+    [decode] = recent("flow.decode", 1)
+    distinct = {i for p in chunk for i in p}
+    assert decode["attrs"]["frames"] == len(distinct) and decode["attrs"]["threads"] >= 1
+    if len(chunk) == stage.batch_size:
+        assert decode["attrs"]["frames"] < 2 * stage.batch_size
+
+
+def test_load_chunk_of_exif_rotated_pngs(tmp_path):
+    """The uint8 loader rotates as the reference does (orientation 6: 270
+    degrees counter-clockwise) and load_chunk carries it through."""
+    from PIL import Image
+
+    store = _png_clip(str(tmp_path), 3, orientation=6)
+    path = pjoin(str(tmp_path), "color_flow", tstore.frame_name(1, ".png"))
+    u8 = tstore.load_png_color_u8(path)
+    with Image.open(path) as im:
+        plain = np.asarray(im.convert("RGB"))
+    assert u8.dtype == np.uint8 and u8.shape == (20, 12, 3)
+    assert np.array_equal(u8, np.rot90(plain, -1))
+    stage = tflow.FlowStage(store, device="cpu", batch_size=2)
+    for a, b in zip(stage.load_chunk([(0, 1), (1, 2)]), _frame_loop(stage, [(0, 1), (1, 2)])):
+        assert a.shape == (2, 20, 12, 3) and np.array_equal(a.numpy(), b)
+
+
+def test_load_chunk_refuses_frames_of_two_shapes(tmp_path):
+    """As np.stack of the loop did: a chunk whose frames differ in shape
+    raises, and the stage loads the next chunk as before."""
+    store = _png_clip(str(tmp_path), 3)
+    tstore.save_png_color(pjoin(str(tmp_path), "color_flow", tstore.frame_name(2, ".png")),
+                          np.zeros((12, 21, 3), np.uint8))
+    stage = tflow.FlowStage(store, device="cpu", batch_size=2)
+    with pytest.raises(ValueError, match="frame_00000"):
+        stage.load_chunk([(0, 2), (1, 2)])
+    for a, b in zip(stage.load_chunk([(0, 1)]), _frame_loop(stage, [(0, 1)])):
+        assert np.array_equal(a.numpy(), b)
+
+
+def test_the_loader_tool_rehearses_on_the_cpu(tmp_path):
+    """tools/flow_loader_cuda.py at a cut size: the flow cell's clip
+    written from a seed, load_chunk bit-equal to the loop on its chunks,
+    fewer decodes than two a pair."""
+    import importlib.util
+
+    path = pjoin(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools",
+                 "flow_loader_cuda.py")
+    spec = importlib.util.spec_from_file_location("flow_loader_cuda", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    base = str(tmp_path / "clip")
+    n = tool.write_cell_clip(base, 2**33 + 5, tiny=True)
+    res = tool.check_chunks(base, n, 16, "cpu", chunks=2)
+    assert res["bit_equal"] and res["chunks"] == 2 and res["pairs"] == 32
+    assert 0 < res["decodes_per_pair"] < 1 and res["threads"] >= 1

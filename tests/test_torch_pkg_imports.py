@@ -70,7 +70,8 @@ def test_sources_import_no_jax_or_jax_package():
         "chip_smoke.py", "tools/sweep_corner_cuda.py", "tools/time_kernels_cuda.py",
         "tools/flow_path_cuda.py", "tools/pipeline_cuda.py", "tools/quality_cuda.py",
         "tools/processor_cuda.py", "tools/mask_rcnn_cuda.py", "tools/mesh_cuda.py",
-        "tools/filter_ties_cuda.py", "tools/sharded_solve_cuda.py", "tools/spans_cuda.py")]
+        "tools/filter_ties_cuda.py", "tools/sharded_solve_cuda.py", "tools/spans_cuda.py",
+        "tools/flow_loader_cuda.py")]
     for root, _, names in os.walk(PKG_DIR):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = []

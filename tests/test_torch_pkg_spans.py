@@ -109,13 +109,13 @@ def test_totals_count_and_sum_every_span():
 
 def test_no_record_function_without_a_profiler(monkeypatch):
     entered = []
-    real = torch.profiler.record_function
+    real = spans._record_function
 
     def counting(name, *a, **k):
         entered.append(name)
         return real(name, *a, **k)
 
-    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    monkeypatch.setattr(spans, "_record_function", counting)
     name = _name("rf")
     assert not torch._C._autograd._profiler_enabled()
     with span(name):
