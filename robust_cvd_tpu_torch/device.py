@@ -21,11 +21,12 @@ def resolve_device(device) -> torch.device:
 
 
 @contextmanager
-def float32_precision(cudnn_tf32: bool):
-    """Run float32 matrix products in full float32 ("highest") and cuDNN
-    convolutions in TF32 or not, restoring the caller's settings after."""
+def float32_precision(cudnn_tf32: bool, matmul_tf32: bool = False):
+    """Run float32 matrix products in full float32 ("highest"), or in TF32
+    ("high") with `matmul_tf32`, and cuDNN convolutions in TF32 or not,
+    restoring the caller's settings after."""
     old = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
-    torch.set_float32_matmul_precision("highest")
+    torch.set_float32_matmul_precision("high" if matmul_tf32 else "highest")
     torch.backends.cudnn.allow_tf32 = cudnn_tf32
     try:
         yield

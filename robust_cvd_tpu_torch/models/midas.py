@@ -37,11 +37,20 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..device import float32_precision
 from .layers import upsample2x
 
 # ImageNet normalization (reference midas_v2_model.py:41-42).
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def normalize_images(images: torch.Tensor) -> torch.Tensor:
+    """[0,1] RGB (..., 3) -> ImageNet-normalized (reference
+    midas_v2_model.py:50-52)."""
+    mean = images.new_tensor(IMAGENET_MEAN)
+    std = images.new_tensor(IMAGENET_STD)
+    return (images - mean) / std
 
 
 BN_MOMENTUM = 0.9  # Flax's convention: running = 0.9 * running + 0.1 * batch
@@ -199,50 +208,81 @@ class Bottleneck(nn.Module):
 
 
 class ResidualConvUnit(nn.Module):
-    """reference blocks.py:88-128. The skip adds relu(x), not x: the
+    """reference blocks.py:88-128: relu, 3x3, relu, 3x3, plus the skip.
+
+    With `relu_skip` (MiDaS v2) the skip adds relu(x), not x: the
     reference's inplace ReLU rewrites x before `out + x` runs, and the
     released checkpoints were trained that way (robust_cvd_tpu/models/
-    midas.py::ResidualConvUnit)."""
+    midas.py::ResidualConvUnit). DPT's unit (isl-org/DPT dpt/blocks.py
+    ResidualConvUnit_custom, whose ReLU is not in place) adds x."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, relu_skip: bool = True):
         super().__init__()
+        self.relu_skip = relu_skip
         self.conv1 = nn.Conv2d(features, features, 3, padding=1)
         self.conv2 = nn.Conv2d(features, features, 3, padding=1)
 
     def forward(self, x):
-        x = F.relu(x)
-        return self.conv2(F.relu(self.conv1(x))) + x
+        y = F.relu(x)
+        return self.conv2(F.relu(self.conv1(y))) + (y if self.relu_skip else x)
 
 
 class FeatureFusionBlock(nn.Module):
     """reference blocks.py:131-160: optional skip-add through an RCU, an
     RCU, then 2x bilinear upsample with align_corners=True. refinenet4 gets
-    no skip, so its resConfUnit1 is dead weight the checkpoint carries."""
+    no skip, so its resConfUnit1 is dead weight the checkpoint carries.
 
-    def __init__(self, features: int):
+    DPT's block (dpt/blocks.py FeatureFusionBlock_custom) is the same with
+    units that add x (`relu_skip=False`) and a 1x1 convolution with bias
+    after the upsample (`out_conv=True`)."""
+
+    def __init__(self, features: int, relu_skip: bool = True, out_conv: bool = False):
         super().__init__()
-        self.resConfUnit1 = ResidualConvUnit(features)
-        self.resConfUnit2 = ResidualConvUnit(features)
+        self.resConfUnit1 = ResidualConvUnit(features, relu_skip)
+        self.resConfUnit2 = ResidualConvUnit(features, relu_skip)
+        self.out_conv = nn.Conv2d(features, features, 1) if out_conv else None
 
     def forward(self, x, skip=None):
         if skip is not None:
             x = x + self.resConfUnit1(skip)
-        return upsample2x(self.resConfUnit2(x), align_corners=True)
+        x = upsample2x(self.resConfUnit2(x), align_corners=True)
+        return x if self.out_conv is None else self.out_conv(x)
 
 
 class _Upsample2x(nn.Module):
-    """The output head's 2x upsample (reference blocks.py:54-85,
-    align_corners=False)."""
+    """The output head's 2x upsample: align_corners=False in MiDaS v2
+    (reference blocks.py:54-85), True in DPT (dpt/models.py's head)."""
+
+    def __init__(self, align_corners: bool = False):
+        super().__init__()
+        self.align_corners = align_corners
 
     def forward(self, x):
-        return upsample2x(x, align_corners=False)
+        return upsample2x(x, align_corners=self.align_corners)
+
+
+def output_head(features: int, mid: int, align_corners: bool) -> nn.Sequential:
+    """The disparity head `scratch.output_conv`: 3x3 to `mid`, 2x bilinear
+    upsample, 3x3 to 32, ReLU, 1x1 to 1, ReLU (non-negative disparity).
+    MiDaS v2: mid 128, align_corners False; DPT: mid features // 2, True."""
+    return nn.Sequential(
+        nn.Conv2d(features, mid, 3, padding=1),
+        _Upsample2x(align_corners),
+        nn.Conv2d(mid, 32, 3, padding=1),
+        nn.ReLU(),
+        nn.Conv2d(32, 1, 1),
+        nn.ReLU(),
+    )
 
 
 class MidasNet(nn.Module):
     """Full MiDaS-v2: (B, 3, H, W) normalized RGB -> (B, H, W) disparity.
+    `normalize` is the input normalisation its weights were trained with.
 
     backbone_layers (3, 4, 23, 3) is ResNeXt-101; smaller depths give the
     same structure for tests."""
+
+    normalize = staticmethod(normalize_images)
 
     def __init__(self, features: int = 256,
                  backbone_layers: Sequence[int] = (3, 4, 23, 3)):
@@ -272,14 +312,7 @@ class MidasNet(nn.Module):
                     nn.Conv2d(cin, features, 3, padding=1, bias=False))
         for k in range(1, 5):
             setattr(self.scratch, f"refinenet{k}", FeatureFusionBlock(features))
-        self.scratch.output_conv = nn.Sequential(
-            nn.Conv2d(features, 128, 3, padding=1),
-            _Upsample2x(),
-            nn.Conv2d(128, 32, 3, padding=1),
-            nn.ReLU(),
-            nn.Conv2d(32, 1, 1),
-            nn.ReLU(),  # non-negative disparity
-        )
+        self.scratch.output_conv = output_head(features, 128, align_corners=False)
 
     def forward(self, x):
         p, s = self.pretrained, self.scratch
@@ -392,50 +425,63 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tens
     return sd
 
 
-def normalize_images(images: torch.Tensor) -> torch.Tensor:
-    """[0,1] RGB (..., 3) -> ImageNet-normalized (reference
-    midas_v2_model.py:50-52)."""
-    mean = images.new_tensor(IMAGENET_MEAN)
-    std = images.new_tensor(IMAGENET_STD)
-    return (images - mean) / std
-
-
 def disparity_to_depth(disparity: torch.Tensor, epsilon: float = 1e-7) -> torch.Tensor:
     """(reference midas_v2_model.py:60-62)."""
     return 1.0 / (disparity + epsilon)
 
 
-def depth_apply(net: MidasNet, images: torch.Tensor) -> torch.Tensor:
+def depth_apply(net: nn.Module, images: torch.Tensor) -> torch.Tensor:
     """Whole-batch inference: normalize + forward + disparity -> depth.
     images: (B, H, W, 3) in [0, 1], the JAX package's layout -> depth
-    (B, H, W)."""
-    x = normalize_images(images).permute(0, 3, 1, 2).contiguous()
+    (B, H, W). The normalisation is the net's own (`net.normalize`)."""
+    x = net.normalize(images).permute(0, 3, 1, 2).contiguous()
     return disparity_to_depth(net(x))
 
 
 class MidasV2Adapter:
     """Model adapter: requirements + the network + batched whole-clip
     inference (reference monodepth/midas_v2_model.py class attributes and
-    estimate_depth). Registered as `midas2` (models/registry.py)."""
+    estimate_depth). Registered as `midas2` (models/registry.py).
+
+    Every adapter names its checkpoint file under `<clip>/models/` and the
+    environment variable that may point at it instead, how to build its
+    net and read its checkpoint, and whether its net runs float32 matrix
+    products in TF32 (`matmul_tf32`; MiDaS v2 has none to speak of, its
+    convolutions take cuDNN's setting). The input normalisation is the
+    net's (`net.normalize`), so a net never meets another model's."""
 
     align = 32
     learning_rate = 1e-6
     lambda_view_baseline = 1e-4
+    checkpoint = "midas_v21-f6b98070.pt"
+    checkpoint_env = "MIDAS_CHECKPOINT"
+    matmul_tf32 = False
+    read_checkpoint = staticmethod(load_checkpoint)
 
-    def __init__(self, net: MidasNet | None = None):
-        self.net = MidasNet() if net is None else net
+    def __init__(self, net: nn.Module | None = None):
+        self.net = self.new_net() if net is None else net
+
+    @staticmethod
+    def new_net() -> nn.Module:
+        return MidasNet()
+
+    @classmethod
+    def from_checkpoint(cls, path: str):
+        net = cls.new_net()
+        net.load_state_dict(cls.read_checkpoint(path))
+        return cls(net)
 
     def estimate_depth(self, images: torch.Tensor, scales=None) -> torch.Tensor:
         """images: (B, H, W, 3) in [0, 1] on the net's device -> depth
         (B, H, W), in eval mode (running BatchNorm statistics) without
-        gradients; `scales` divides the disparity first."""
+        gradients, matrix products in TF32 where `matmul_tf32`; `scales`
+        divides the disparity first."""
         training = self.net.training
         self.net.eval()
         try:
-            with torch.no_grad():
-                if scales is None:
-                    return depth_apply(self.net, images)
-                x = normalize_images(images).permute(0, 3, 1, 2).contiguous()
-                return disparity_to_depth(self.net(x) / scales)
+            with torch.no_grad(), float32_precision(torch.backends.cudnn.allow_tf32,
+                                                    self.matmul_tf32):
+                disparity = self.net(self.net.normalize(images).permute(0, 3, 1, 2).contiguous())
+                return disparity_to_depth(disparity if scales is None else disparity / scales)
         finally:
             self.net.train(training)

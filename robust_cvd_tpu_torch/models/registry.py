@@ -1,10 +1,14 @@
 """Depth-model registry (reference monodepth/depth_model_registry.py:10-18).
 
-A copy of robust_cvd_tpu/models/registry.py. The reference registers only
-`midas2`, here the port's MidasV2Adapter. Adapters expose the requirement
-attributes the CLI resolves from (`align`, `learning_rate`,
-`lambda_view_baseline`, reference params.py:245-255) and batched
-`estimate_depth`.
+After robust_cvd_tpu/models/registry.py. The reference registers only
+`midas2`, here the port's MidasV2Adapter; the port adds `dpt_large`
+(models/dpt.py::DPTLargeAdapter, MiDaS v3.0). Adapters expose the
+requirement attributes the CLI resolves from (`align`, `learning_rate`,
+`lambda_view_baseline`, reference params.py:245-255), their checkpoint's
+file name and environment variable (`checkpoint`, `checkpoint_env`),
+`from_checkpoint(path)`, whether their net runs matrix products in TF32
+(`matmul_tf32`), the net (`net`, whose `normalize` is its input
+normalisation) and batched `estimate_depth`.
 """
 
 from __future__ import annotations
@@ -25,9 +29,11 @@ def register(name: str):
 def get_depth_model(name: str):
     if name not in _REGISTRY:
         # lazy-register builtins
+        from .dpt import DPTLargeAdapter
         from .midas import MidasV2Adapter
 
         _REGISTRY.setdefault("midas2", MidasV2Adapter)
+        _REGISTRY.setdefault("dpt_large", DPTLargeAdapter)
     try:
         return _REGISTRY[name]
     except KeyError:

@@ -1,12 +1,12 @@
-"""Initial depth stage: batched MiDaS inference over the whole clip.
+"""Initial depth stage: batched depth-model inference over the whole clip.
 
 Port of robust_cvd_tpu/pipeline/depth.py (reference process.py:115-124 +
 depth_fine_tuning.py save_depth, 227-294). Writes
 `depth_{model}/depth/frame_%06d.raw` (disparity-encoded).
 
 Precision on the card: float32 weights and activations, cuDNN
-convolutions in TF32 and matrix products in full float32, set explicitly
-for the stage.
+convolutions in TF32 and matrix products in full float32 (in TF32 where
+the adapter asks, `matmul_tf32`), set explicitly for the stage.
 
 On a data mesh (parallel/mesh.py) each rank infers its shard of the frames
 (padded with copies of frame 0, as the JAX package pads), every rank gets
@@ -31,7 +31,7 @@ def compute_initial_depth(
     store: VideoStore, adapter, model_type: str, batch: int = 16,
     stats: dict | None = None, device="cuda",
 ) -> np.ndarray:
-    """MiDaS depth (N, h, w) of every `color_down` frame, saved as the
+    """The adapter's depth (N, h, w) of every `color_down` frame, saved as the
     `depth_{model_type}` stream; an existing full stream is loaded instead.
     Chunks of `batch` frames; the last chunk is padded by repeating its
     final frame, so the net sees the same batches as in the JAX package."""
@@ -61,7 +61,7 @@ def compute_initial_depth(
         images = images[mesh.shard(images.shape[0])]
     n = images.shape[0]
     outs = []
-    with torch.no_grad(), float32_precision(cudnn_tf32=True):
+    with torch.no_grad(), float32_precision(cudnn_tf32=True, matmul_tf32=adapter.matmul_tf32):
         for s in range(0, n, batch):
             t0 = time.perf_counter()
             chunk = images[s : s + batch]

@@ -53,10 +53,10 @@ FLOW_ALIGN = 64
 class DatasetProcessor:
     def __init__(self, cfg: PipelineConfig, models: dict | None = None,
                  device="cuda"):
-        """models: optional dict with 'depth' (a MidasV2Adapter) and 'flow'
-        (a RAFT) entries, loaded from their checkpoints otherwise. `device`
-        is where every stage runs ("cuda" unless the caller asks for
-        "cpu")."""
+        """models: optional dict with 'depth' (a depth-model adapter, e.g.
+        MidasV2Adapter) and 'flow' (a RAFT) entries, loaded from their
+        checkpoints otherwise. `device` is where every stage runs ("cuda"
+        unless the caller asks for "cpu")."""
         self.cfg = cfg
         self.models = models or {}
         self.device = resolve_device(device)
@@ -71,20 +71,22 @@ class DatasetProcessor:
         )
 
     def _depth_model(self):
+        """The adapter that cfg.model_type names (models/registry.py), its
+        net loaded from <path>/models/<its checkpoint> or the file its
+        environment variable names."""
         if "depth" not in self.models:
-            from ..models import midas
+            from ..models.registry import get_depth_model
 
-            ckpt = pjoin(self.cfg.path, "models", "midas_v21-f6b98070.pt")
+            adapter = get_depth_model(self.cfg.model_type)
+            ckpt = pjoin(self.cfg.path, "models", adapter.checkpoint)
             if not os.path.exists(ckpt):
-                ckpt = os.environ.get("MIDAS_CHECKPOINT", "")
+                ckpt = os.environ.get(adapter.checkpoint_env, "")
             if not ckpt or not os.path.exists(ckpt):
                 raise FileNotFoundError(
-                    "MiDaS checkpoint not found; set MIDAS_CHECKPOINT or place "
-                    "models/midas_v21-f6b98070.pt under --path"
+                    f"{self.cfg.model_type} checkpoint not found; set "
+                    f"{adapter.checkpoint_env} or place models/{adapter.checkpoint} under --path"
                 )
-            net = midas.MidasNet()
-            net.load_state_dict(midas.load_checkpoint(ckpt))
-            self.models["depth"] = midas.MidasV2Adapter(net)
+            self.models["depth"] = adapter.from_checkpoint(ckpt)
         return self.models["depth"]
 
     def _flow_model(self):

@@ -4,7 +4,8 @@ Port of robust_cvd_tpu/training/fine_tune.py (reference
 depth_fine_tuning.py:207-860):
   - the whole clip's frames, flows and masks live on the device; a batch is
     a set of pair ids gathered inside the step;
-  - one train step: MiDaS forward in train mode (Flax BatchNorm semantics),
+  - one train step: the depth model's forward in train mode (MiDaS v2:
+    Flax BatchNorm semantics; DPT has no BatchNorm),
     the depth-transform scale maps, JointLoss, backward, the non-finite
     guard and one fused Adam kernel launch over the flat parameter buffer
     (training/optimizer.py, ops/adam.py), then the guarded BatchNorm update;
@@ -19,7 +20,10 @@ epoch (the loop's only host sync).
 
 Precision on the card: float32 parameters, activations and Adam state;
 cuDNN convolutions in TF32 unless the tuner is built with
-cudnn_tf32=False; the loss stack and geometry in full float32.
+cudnn_tf32=False; the net's matrix products in TF32 where its adapter asks
+(`matmul_tf32`, DPT) and the tuner allows TF32, in full float32 otherwise;
+the loss stack and geometry in full float32. The net's input normalisation
+is its own (`net.normalize`).
 
 recon=colmap: the poses come fixed from the COLMAP reconstruction
 (`pose_state_override`) and the solver never runs; with a reference
@@ -76,8 +80,7 @@ from ..camera import pose_params_to_camera, quat_to_matrix
 from ..config import LossParams, PipelineConfig
 from ..device import float32_precision, resolve_device
 from ..models.midas import (
-    commit_batch_stats, depth_apply, global_batch_stats, normalize_images,
-    per_slice_batch_stats,
+    commit_batch_stats, depth_apply, global_batch_stats, per_slice_batch_stats,
 )
 from ..ops import geometry
 from ..parallel.mesh import is_writer
@@ -252,11 +255,12 @@ def _batch(batch_ids: torch.Tensor, clip: ClipData, ps: PoseState, use_temporal:
 
 def _train_mode_depth(net, images: torch.Tensor, frames: torch.Tensor, clip: ClipData,
                       ps: PoseState) -> torch.Tensor:
-    """Train-mode MiDaS depth (B, K, H, W) of images (B, K, H, W, 3), times
-    the scale maps, rescaled to the COLMAP reference where it is set."""
+    """Train-mode depth (B, K, H, W) of images (B, K, H, W, 3), normalised
+    by the net's own `normalize`, times the scale maps, rescaled to the
+    COLMAP reference where it is set."""
     b, k, h, w, _ = images.shape
     net.train()
-    x = normalize_images(images.reshape(b * k, h, w, 3)).permute(0, 3, 1, 2).contiguous()
+    x = net.normalize(images.reshape(b * k, h, w, 3)).permute(0, 3, 1, 2).contiguous()
     depth = (1.0 / (net(x) + 1e-7)).reshape(b, k, h, w) * ps.scales[frames]
     if clip.ref_disp is not None:
         depth = depth * colmap_depth_scale(depth, clip.ref_disp[frames])[..., None, None]
@@ -384,6 +388,7 @@ class FineTuner:
         self.mesh = mesh
         self.n_mesh = 1 if mesh is None else mesh.size
         self.cudnn_tf32 = cudnn_tf32
+        self.matmul_tf32 = cudnn_tf32 and adapter.matmul_tf32
         self.pose_state_override = pose_state_override
         self.adapter = adapter
         self.net = adapter.net.to(self.device)
@@ -441,9 +446,12 @@ class FineTuner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _precision(self):
+        return float32_precision(self.cudnn_tf32, self.matmul_tf32)
+
     def train_step(self, batch_ids: torch.Tensor):
         """One step on this rank's pairs `batch_ids` (see train_step)."""
-        with float32_precision(self.cudnn_tf32):
+        with self._precision():
             return train_step(
                 self.net, self.optimizer, self.cfg.loss, batch_ids, self.clip,
                 self.pose_state, self.use_temporal,
@@ -695,7 +703,7 @@ class FineTuner:
         batch = max(1, min(self.cfg.ft.batch_size, n_pairs))
         ids = torch.arange(n_pairs, device=self.device)
         totals, parts = [], []
-        with float32_precision(self.cudnn_tf32):
+        with self._precision():
             for s in range(0, n_pairs, batch):
                 t, p = eval_losses(
                     self.net, self.optimizer.flat, self.optimizer.init, self.cfg.loss,
@@ -863,7 +871,7 @@ class FineTuner:
         n = images.shape[0]
         outs = []
         self.net.eval()
-        with torch.no_grad(), float32_precision(self.cudnn_tf32):
+        with torch.no_grad(), self._precision():
             for s in range(0, n, batch):
                 chunk = images[s : s + batch]
                 pad = batch - chunk.shape[0]
