@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import functools
 from contextlib import contextmanager
 
 import torch
@@ -18,6 +19,15 @@ def resolve_device(device) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The 1-d tensor of `values` on `device`, made once and then shared.
+    Building a tensor from host numbers on a card copies them through a
+    host sync each time, which stalls the host behind the card and cannot
+    be captured in a CUDA graph. Never write into it."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 @contextmanager

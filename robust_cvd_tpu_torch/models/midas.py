@@ -37,7 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..device import float32_precision
+from ..device import constant, float32_precision
 from .layers import upsample2x
 
 # ImageNet normalization (reference midas_v2_model.py:41-42).
@@ -48,8 +48,8 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 def normalize_images(images: torch.Tensor) -> torch.Tensor:
     """[0,1] RGB (..., 3) -> ImageNet-normalized (reference
     midas_v2_model.py:50-52)."""
-    mean = images.new_tensor(IMAGENET_MEAN)
-    std = images.new_tensor(IMAGENET_STD)
+    mean = constant(IMAGENET_MEAN, images.device, images.dtype)
+    std = constant(IMAGENET_STD, images.device, images.dtype)
     return (images - mean) / std
 
 

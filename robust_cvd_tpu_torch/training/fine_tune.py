@@ -16,7 +16,9 @@ depth_fine_tuning.py:207-860):
 
 The JAX package runs an epoch's full batches as one lax.scan; here they are
 a Python loop whose per-step losses stay on the device, read back once per
-epoch (the loop's only host sync).
+epoch (the loop's only host sync). On a card without a mesh each step is
+the replay of a CUDA graph of the whole step, captured once per batch size
+(training/step_graph.py); on the CPU and on a mesh the step runs eagerly.
 
 Precision on the card: float32 parameters, activations and Adam state;
 cuDNN convolutions in TF32 unless the tuner is built with
@@ -68,6 +70,7 @@ epoch's host sync.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from os.path import join as pjoin
@@ -92,6 +95,7 @@ from ..utils.spans import span
 from . import losses
 from .losses import LossMeta
 from .optimizer import FlatAdam
+from .step_graph import StepGraph, graphable
 
 
 class ClipData(NamedTuple):
@@ -283,27 +287,37 @@ def train_step(net, optimizer: FlatAdam, loss_opt: LossParams,
 
     The step is the span `train.step` (utils/spans.py), its phases the
     spans `train.batch`, `train.forward`, `train.loss`, `train.backward`
-    and `train.optimizer`: the host's time enqueuing each."""
+    and `train.optimizer`: the host's time enqueuing each. This is the
+    eager step; FineTuner runs it through a CUDA graph on a card without a
+    mesh (training/step_graph.py)."""
     with span("train.step"):
-        with span("train.batch"):
-            frames, images, meta = _batch(batch_ids, clip, ps, use_temporal)
-        with span("train.forward"):
-            optimizer.zero_grad()
-            with global_batch_stats(net, optimizer.mesh):
-                depth = _train_mode_depth(net, images, frames, clip, ps)
-        with span("train.loss"):
-            total, parts = losses.joint_loss(
-                loss_opt, images, clip.depth_orig[frames], depth, meta,
-                params=optimizer.leaf, params_init=optimizer.init,
-            )
-        with span("train.backward"):
-            total.backward()
-            optimizer.check_aliasing()
-        with span("train.optimizer"):
-            loss = total.detach().clone()
-            ok = optimizer.step(loss)
-            commit_batch_stats(net, ok)
-        return loss, {name: v.detach() for name, v in parts.items()}, ok
+        return step_phases(net, optimizer, loss_opt, batch_ids, clip, ps, use_temporal)
+
+
+def step_phases(net, optimizer: FlatAdam, loss_opt: LossParams,
+                batch_ids: torch.Tensor, clip: ClipData, ps: PoseState,
+                use_temporal: bool):
+    """train_step's work, each phase in its span, without the enclosing
+    `train.step`: what a StepGraph captures."""
+    with span("train.batch"):
+        frames, images, meta = _batch(batch_ids, clip, ps, use_temporal)
+    with span("train.forward"):
+        optimizer.zero_grad()
+        with global_batch_stats(net, optimizer.mesh):
+            depth = _train_mode_depth(net, images, frames, clip, ps)
+    with span("train.loss"):
+        total, parts = losses.joint_loss(
+            loss_opt, images, clip.depth_orig[frames], depth, meta,
+            params=optimizer.leaf, params_init=optimizer.init,
+        )
+    with span("train.backward"):
+        total.backward()
+        optimizer.check_aliasing()
+    with span("train.optimizer"):
+        loss = total.detach().clone()
+        ok = optimizer.step(loss)
+        commit_batch_stats(net, ok)
+    return loss, {name: v.detach() for name, v in parts.items()}, ok
 
 
 def eval_losses(net, flat: torch.Tensor, init: torch.Tensor, loss_opt: LossParams,
@@ -364,7 +378,9 @@ class FineTuner:
     caller asks for "cpu"); `clip` and `pose_inputs` must live there. With
     `mesh` (the data mesh, on `device`), `pose_inputs` is this rank's
     share of the constraints (shard_pose_inputs) and only rank 0 needs
-    `pose`, which writes; the other ranks pass None."""
+    `pose`, which writes; the other ranks pass None. On a card without a
+    mesh, `step_graph` (training/step_graph.py) captures the train step
+    and replays it; elsewhere it is None and the step runs eagerly."""
 
     def __init__(self, cfg: PipelineConfig, adapter, clip: ClipData,
                  pose_inputs: Optional[PoseOptInputs], seed: int = 0,
@@ -404,6 +420,11 @@ class FineTuner:
         self.optimizer = FlatAdam(
             list(self.net.named_parameters()), lr, rectified=optimizer == "radam",
             mu_bf16=ft.optimizer_mu_bf16 and optimizer == "adam", mesh=mesh,
+        )
+        self.step_graph = (
+            StepGraph(functools.partial(step_phases, self.net, self.optimizer),
+                      self.optimizer)
+            if graphable(self.device, mesh) else None
         )
         if mesh is not None:
             # every replica starts from rank 0's weights and statistics
@@ -450,8 +471,12 @@ class FineTuner:
         return float32_precision(self.cudnn_tf32, self.matmul_tf32)
 
     def train_step(self, batch_ids: torch.Tensor):
-        """One step on this rank's pairs `batch_ids` (see train_step)."""
+        """One step on this rank's pairs `batch_ids` (see train_step):
+        through the step graph where there is one, else eagerly."""
         with self._precision():
+            if self.step_graph is not None:
+                return self.step_graph(self.cfg.loss, batch_ids, self.clip, self.pose_state,
+                                       self.use_temporal)
             return train_step(
                 self.net, self.optimizer, self.cfg.loss, batch_ids, self.clip,
                 self.pose_state, self.use_temporal,

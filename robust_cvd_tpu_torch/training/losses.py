@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import LossParams
+from ..device import constant
 from ..ops import geometry
 
 
@@ -97,7 +98,7 @@ def _points_and_pixels(depths, intrinsics, warp):
     b, n, h, w = depths.shape
     pixels = geometry.pixel_grid((h, w), depths.device).expand(b, n, h, w, 2)
     if warp is not None:
-        pixels = pixels + warp * depths.new_tensor([w / 2.0, h / 2.0])
+        pixels = pixels + warp * constant((w / 2.0, h / 2.0), depths.device, depths.dtype)
     points = geometry.pixels_to_points(intrinsics[..., None, None, :], depths, pixels)
     return points, pixels
 
