@@ -583,7 +583,7 @@ def small_tuner(device: str, seed: int, n: int = 4, h: int = 32, w: int = 64, me
     import torch
 
     from robust_cvd_tpu_torch.config import FineTuneParams, PipelineConfig
-    from robust_cvd_tpu_torch.models import midas
+    from robust_cvd_tpu_torch.models import layers, midas
     from robust_cvd_tpu_torch.solver.residuals import SolverParams
     from robust_cvd_tpu_torch.training.fine_tune import (
         FineTuner, build_clip_data, pose_state_from_solver,
@@ -608,7 +608,7 @@ def small_tuner(device: str, seed: int, n: int = 4, h: int = 32, w: int = 64, me
     net = midas.seeded_init_(midas.MidasNet(features=32, backbone_layers=(1, 1, 1, 1)), seed)
     with torch.no_grad():
         for name, m in net.named_modules():
-            if isinstance(m, midas.BatchNorm2d) and not name.endswith("bn3"):
+            if isinstance(m, layers.BatchNorm2d) and not name.endswith("bn3"):
                 m.bias.fill_(3.0)
     cfg = PipelineConfig(ft=FineTuneParams(save_tensorboard=False, **ft_options))
     clip = build_clip_data(images, depth, flow_list, flows, masks, 0.2, device=device)
@@ -645,7 +645,7 @@ def step_phase(seed: int) -> None:
     bf16 ulp of its value."""
     import torch
 
-    from robust_cvd_tpu_torch.models import midas
+    from robust_cvd_tpu_torch.models import layers
     from robust_cvd_tpu_torch.ops import adam
 
     def run(device, options):
@@ -658,7 +658,7 @@ def step_phase(seed: int) -> None:
             losses.append(loss.item())
         opt = tuner.optimizer
         stats = torch.cat([torch.cat([m.running_mean, m.running_var])
-                           for m in midas.batch_norms(tuner.net)])
+                           for m in layers.batch_norms(tuner.net)])
         return losses, {"params": opt.flat, "mu": opt.mu.float(), "nu": opt.nu,
                         "batch_stats": stats, "count": opt.count}
 
@@ -703,7 +703,7 @@ def graph_steps(tuner, device: str) -> dict:
     """GRAPH_STEPS through tuner.train_step; the state after them."""
     import torch
 
-    from robust_cvd_tpu_torch.models import midas
+    from robust_cvd_tpu_torch.models import layers
 
     losses, oks = [], []
     for ids in GRAPH_STEPS:
@@ -717,7 +717,7 @@ def graph_steps(tuner, device: str) -> dict:
         oks.append(ok)
     opt = tuner.optimizer
     stats = torch.cat([torch.cat([m.running_mean, m.running_var])
-                       for m in midas.batch_norms(tuner.net)])
+                       for m in layers.batch_norms(tuner.net)])
     return {"losses": torch.stack(losses), "oks": torch.stack(oks), "params": opt.flat,
             "mu": opt.mu.float(), "nu": opt.nu, "batch_stats": stats, "count": opt.count}
 
@@ -1136,7 +1136,7 @@ def path_phase(base: str, n_frames: int, seed: int, device: str = "cuda", net=No
     ckpt = os.path.join(base, "models", "midas_v21-f6b98070.pt")
     net = midas.MidasNet() if net is None else net
     if os.path.exists(ckpt):
-        net.load_state_dict(midas.load_checkpoint(ckpt))
+        net.load_state_dict(midas.MidasV2Adapter.read_checkpoint(ckpt))
         print("midas weights: checkpoint")
     else:
         midas.seeded_init_(net, seed)

@@ -18,7 +18,7 @@ and feeds it RGB normalised with mean 0.5 and std 0.5.
   stride-4 or 2x2 stride-2 transposed convolution, nothing, or a 3x3
   stride-2 convolution: 1/4 to 1/32 of the frame.
 - Decoder: MiDaS v2's scratch convolutions, fusion blocks and head
-  (models/midas.py) with DPT's differences: the residual units add x (not
+  (models/layers.py) with DPT's differences: the residual units add x (not
   relu(x)), each fusion block ends in a 1x1 convolution, and the head's
   upsample has align_corners=True. The output is disparity.
 
@@ -31,7 +31,7 @@ hooked one are not run (none at the published hooks).
 
 The net has no BatchNorm, so the fine-tune's batch-statistics contexts
 leave it alone. Its adapter runs the net's float32 matrix products in TF32
-(`matmul_tf32`); the plain references run them in float32.
+where TF32 is allowed (`matmul_tf32`); the plain references in float32.
 
 Spans (utils/spans.py): `dpt.embed`, `dpt.encoder` (attrs `tokens` a
 frame and `frames`), `dpt.reassemble` and `dpt.decoder` (fusion and head).
@@ -40,14 +40,15 @@ frame and `frames`), `dpt.reassemble` and `dpt.decoder` (fusion and head).
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.spans import span
-from .midas import FeatureFusionBlock, MidasV2Adapter, output_head
+from .depth_model import DepthModel
+from .layers import FeatureFusionBlock, output_head
 
 LN_EPS = 1e-6  # timm's ViT LayerNorm
 
@@ -227,27 +228,18 @@ class DPTDepthNet(nn.Module):
             return s.output_conv(p1)[:, 0]
 
 
-def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A dpt_large checkpoint's state dict: the bare dict, or MiDaS's
-    {"model": ..., "optimizer": ...} (midas/base_model.py::load), without
-    DataParallel prefixes."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd, dict) and "optimizer" in sd:
-        sd = sd["model"]
-    return {k.removeprefix("module."): v for k, v in sd.items()}
+class DPTLargeAdapter(DepthModel):
+    """DPT-Large, MiDaS v3.0 (registered as `dpt_large`, models/registry.py),
+    with TF32 matrix products. The reference gives DPT no fine-tune
+    settings of its own, so `align`, the learning rate and the view
+    baseline are assumed equal to midas2's."""
 
-
-class DPTLargeAdapter(MidasV2Adapter):
-    """Model adapter of DPT-Large, MiDaS v3.0 (registered as `dpt_large`,
-    models/registry.py): MidasV2Adapter's with DPT's net (and so its
-    normalisation), checkpoint and TF32 matrix products. The reference
-    gives DPT no fine-tune settings of its own, so `align`, the learning
-    rate and the view baseline are assumed equal to midas2's."""
-
+    align = 32
+    learning_rate = 1e-6
+    lambda_view_baseline = 1e-4
     checkpoint = "dpt_large-midas-2f21e586.pt"
     checkpoint_env = "DPT_CHECKPOINT"
     matmul_tf32 = True
-    read_checkpoint = staticmethod(load_checkpoint)
 
     @staticmethod
     def new_net() -> nn.Module:

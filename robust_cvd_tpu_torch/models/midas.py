@@ -11,25 +11,10 @@ Module names follow the original checkpoint's state-dict keys
 `load_state_dict`. The grouped 3x3 convolutions are plain `groups=32`
 convolutions: the JAX package's merge/block_dense/im2col lowerings are
 TPU workarounds for the same function.
-
-BatchNorm follows Flax's semantics (the JAX package's network): eval mode
-normalises with the running statistics (eps 1e-5); train mode normalises
-with the batch's biased statistics and leaves the running statistics alone
-until `commit_batch_stats` applies Flax's update, running = 0.9 running +
-0.1 batch, with the BIASED batch variance (torch's own BatchNorm2d would
-fold in the unbiased one) and only where the step's guard flag is set.
-Within `per_slice_batch_stats(net, g)` a train-mode batch of g equal
-slices normalises each slice with its own statistics (the per-pair eval,
-which the JAX package runs one pair at a time). Within
-`global_batch_stats(net, mesh)` train mode takes its statistics over the
-batches of every rank of a data mesh (parallel/mesh.py), as the JAX
-package's jit does over a sharded batch.
 """
 
 from __future__ import annotations
 
-import re
-from contextlib import contextmanager
 from typing import Dict, Sequence
 
 import numpy as np
@@ -37,8 +22,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..device import constant, float32_precision
-from .layers import upsample2x
+from ..device import constant
+from .depth_model import DepthModel, depth_apply  # noqa: F401 (cvd_bench's tests import it here)
+from .layers import BatchNorm2d, FeatureFusionBlock, output_head
 
 # ImageNet normalization (reference midas_v2_model.py:41-42).
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -51,127 +37,6 @@ def normalize_images(images: torch.Tensor) -> torch.Tensor:
     mean = constant(IMAGENET_MEAN, images.device, images.dtype)
     std = constant(IMAGENET_STD, images.device, images.dtype)
     return (images - mean) / std
-
-
-BN_MOMENTUM = 0.9  # Flax's convention: running = 0.9 * running + 0.1 * batch
-
-
-class BatchNorm2d(nn.BatchNorm2d):
-    """nn.BatchNorm2d (same state-dict keys) with Flax's train mode.
-
-    In train mode the forward normalises with the batch mean and biased
-    variance and records them in `batch_stats`; the running buffers change
-    only through `commit_batch_stats`. Flax computes the variance as
-    E[x^2] - E[x]^2 clipped at 0, torch's kernel by a two-pass/Welford sum:
-    the same biased variance up to rounding. The batch statistics come out
-    of the fused batch_norm call itself (scratch running buffers at momentum
-    1 receive the batch mean and the unbiased variance, which is rescaled
-    by (n - 1) / n), so train mode adds no pass over the activations."""
-
-    batch_stats = None
-    # > 1: train mode normalises each of this many equal slices of the batch
-    # with its own statistics and records none (see per_slice_batch_stats)
-    stat_slices = 1
-    # a parallel.mesh.Mesh: train mode takes the global batch's statistics
-    # (see global_batch_stats)
-    mesh = None
-
-    def forward(self, x):
-        if not self.training:
-            return F.batch_norm(
-                x, self.running_mean, self.running_var, self.weight, self.bias,
-                False, 0.0, self.eps,
-            )
-        if self.stat_slices > 1:
-            # (G*K, C, H, W) -> (K, G*C, H, W): slice g's channels become
-            # channels of their own, so one fused call gives each slice its
-            # own statistics
-            g = self.stat_slices
-            n, c, h, w = x.shape
-            xs = x.reshape(g, n // g, c, h, w).transpose(0, 1).reshape(n // g, g * c, h, w)
-            y = F.batch_norm(xs, None, None, self.weight.repeat(g), self.bias.repeat(g),
-                             True, 0.0, self.eps)
-            return y.reshape(n // g, g, c, h, w).transpose(0, 1).reshape(n, c, h, w)
-        if self.mesh is not None:
-            return self._global_forward(x)
-        mean = x.new_zeros(self.num_features)
-        var = x.new_zeros(self.num_features)
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
-        n = x.numel() // self.num_features
-        self.batch_stats = (mean, var * ((n - 1) / n))
-        return y
-
-    def _global_forward(self, x):
-        """Train mode over the mesh's global batch: one differentiable
-        all-reduce of the per-channel sums of x and x^2 and the element
-        count, then Flax's statistics, mean E[x] and biased variance
-        max(E[x^2] - E[x]^2, 0). The backward sums each rank's gradient of
-        the statistics over the ranks, so the gradients are those of the
-        global batch's loss."""
-        c = self.num_features
-        sums = torch.cat([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3)),
-                          x.new_full((1,), x.numel() // c)])
-        sums = self.mesh.all_reduce_sum(sums)
-        mean = sums[:c] / sums[-1]
-        var = torch.clamp(sums[c : 2 * c] / sums[-1] - mean * mean, min=0.0)
-        scale = self.weight * torch.rsqrt(var + self.eps)
-        y = (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
-        self.batch_stats = (mean.detach(), var.detach())
-        return y
-
-
-def batch_norms(net: nn.Module) -> list:
-    return [m for m in net.modules() if isinstance(m, BatchNorm2d)]
-
-
-@contextmanager
-def per_slice_batch_stats(net: nn.Module, slices: int):
-    """Within the block, a train-mode forward of a batch of `slices` equal
-    slices normalises each slice with its own batch statistics, as if each
-    went through the net alone, and records no statistics to commit."""
-    layers = batch_norms(net)
-    for m in layers:
-        m.stat_slices = slices
-    try:
-        yield
-    finally:
-        for m in layers:
-            m.stat_slices = 1
-            m.batch_stats = None
-
-
-@contextmanager
-def global_batch_stats(net: nn.Module, mesh):
-    """Within the block, a train-mode forward takes its BatchNorm statistics
-    over the batches of every rank of `mesh` (nothing changes for None)."""
-    layers = batch_norms(net) if mesh is not None else []
-    for m in layers:
-        m.mesh = mesh
-    try:
-        yield
-    finally:
-        for m in layers:
-            m.mesh = None
-
-
-def commit_batch_stats(net: nn.Module, ok: torch.Tensor) -> None:
-    """Fold the last train-mode forward's batch statistics into the
-    running statistics (Flax's update) where the device bool `ok` is set,
-    and keep them bitwise where it is not (the step's non-finite guard,
-    robust_cvd_tpu/training/fine_tune.py:307). One concatenated update, so
-    the cost does not grow with the number of layers; no host sync."""
-    layers = [m for m in batch_norms(net) if m.batch_stats is not None]
-    if not layers:
-        return
-    with torch.no_grad():
-        running = [m.running_mean for m in layers] + [m.running_var for m in layers]
-        batch = [m.batch_stats[0] for m in layers] + [m.batch_stats[1] for m in layers]
-        old = torch.cat(running)
-        new = BN_MOMENTUM * old + (1 - BN_MOMENTUM) * torch.cat(batch)
-        upd = torch.where(ok, new, old)
-        torch._foreach_copy_(running, list(upd.split([t.numel() for t in running])))
-    for m in layers:
-        m.batch_stats = None
 
 
 class Bottleneck(nn.Module):
@@ -205,74 +70,6 @@ class Bottleneck(nn.Module):
         y = F.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
         return F.relu(y + identity)
-
-
-class ResidualConvUnit(nn.Module):
-    """reference blocks.py:88-128: relu, 3x3, relu, 3x3, plus the skip.
-
-    With `relu_skip` (MiDaS v2) the skip adds relu(x), not x: the
-    reference's inplace ReLU rewrites x before `out + x` runs, and the
-    released checkpoints were trained that way (robust_cvd_tpu/models/
-    midas.py::ResidualConvUnit). DPT's unit (isl-org/DPT dpt/blocks.py
-    ResidualConvUnit_custom, whose ReLU is not in place) adds x."""
-
-    def __init__(self, features: int, relu_skip: bool = True):
-        super().__init__()
-        self.relu_skip = relu_skip
-        self.conv1 = nn.Conv2d(features, features, 3, padding=1)
-        self.conv2 = nn.Conv2d(features, features, 3, padding=1)
-
-    def forward(self, x):
-        y = F.relu(x)
-        return self.conv2(F.relu(self.conv1(y))) + (y if self.relu_skip else x)
-
-
-class FeatureFusionBlock(nn.Module):
-    """reference blocks.py:131-160: optional skip-add through an RCU, an
-    RCU, then 2x bilinear upsample with align_corners=True. refinenet4 gets
-    no skip, so its resConfUnit1 is dead weight the checkpoint carries.
-
-    DPT's block (dpt/blocks.py FeatureFusionBlock_custom) is the same with
-    units that add x (`relu_skip=False`) and a 1x1 convolution with bias
-    after the upsample (`out_conv=True`)."""
-
-    def __init__(self, features: int, relu_skip: bool = True, out_conv: bool = False):
-        super().__init__()
-        self.resConfUnit1 = ResidualConvUnit(features, relu_skip)
-        self.resConfUnit2 = ResidualConvUnit(features, relu_skip)
-        self.out_conv = nn.Conv2d(features, features, 1) if out_conv else None
-
-    def forward(self, x, skip=None):
-        if skip is not None:
-            x = x + self.resConfUnit1(skip)
-        x = upsample2x(self.resConfUnit2(x), align_corners=True)
-        return x if self.out_conv is None else self.out_conv(x)
-
-
-class _Upsample2x(nn.Module):
-    """The output head's 2x upsample: align_corners=False in MiDaS v2
-    (reference blocks.py:54-85), True in DPT (dpt/models.py's head)."""
-
-    def __init__(self, align_corners: bool = False):
-        super().__init__()
-        self.align_corners = align_corners
-
-    def forward(self, x):
-        return upsample2x(x, align_corners=self.align_corners)
-
-
-def output_head(features: int, mid: int, align_corners: bool) -> nn.Sequential:
-    """The disparity head `scratch.output_conv`: 3x3 to `mid`, 2x bilinear
-    upsample, 3x3 to 32, ReLU, 1x1 to 1, ReLU (non-negative disparity).
-    MiDaS v2: mid 128, align_corners False; DPT: mid features // 2, True."""
-    return nn.Sequential(
-        nn.Conv2d(features, mid, 3, padding=1),
-        _Upsample2x(align_corners),
-        nn.Conv2d(mid, 32, 3, padding=1),
-        nn.ReLU(),
-        nn.Conv2d(32, 1, 1),
-        nn.ReLU(),
-    )
 
 
 class MidasNet(nn.Module):
@@ -353,14 +150,6 @@ def seeded_init_(net: MidasNet, seed: int) -> MidasNet:
     return net
 
 
-def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A midas_v21 checkpoint's state dict, without DataParallel prefixes."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd, dict) and "state_dict" in sd:
-        sd = sd["state_dict"]
-    return {re.sub(r"^module\.", "", k): v for k, v in sd.items()}
-
-
 def state_dict_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
     """Flax MidasNet variables (numpy trees) -> this module's state_dict.
 
@@ -425,63 +214,16 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tens
     return sd
 
 
-def disparity_to_depth(disparity: torch.Tensor, epsilon: float = 1e-7) -> torch.Tensor:
-    """(reference midas_v2_model.py:60-62)."""
-    return 1.0 / (disparity + epsilon)
-
-
-def depth_apply(net: nn.Module, images: torch.Tensor) -> torch.Tensor:
-    """Whole-batch inference: normalize + forward + disparity -> depth.
-    images: (B, H, W, 3) in [0, 1], the JAX package's layout -> depth
-    (B, H, W). The normalisation is the net's own (`net.normalize`)."""
-    x = net.normalize(images).permute(0, 3, 1, 2).contiguous()
-    return disparity_to_depth(net(x))
-
-
-class MidasV2Adapter:
-    """Model adapter: requirements + the network + batched whole-clip
-    inference (reference monodepth/midas_v2_model.py class attributes and
-    estimate_depth). Registered as `midas2` (models/registry.py).
-
-    Every adapter names its checkpoint file under `<clip>/models/` and the
-    environment variable that may point at it instead, how to build its
-    net and read its checkpoint, and whether its net runs float32 matrix
-    products in TF32 (`matmul_tf32`; MiDaS v2 has none to speak of, its
-    convolutions take cuDNN's setting). The input normalisation is the
-    net's (`net.normalize`), so a net never meets another model's."""
+class MidasV2Adapter(DepthModel):
+    """MiDaS v2.1 (reference monodepth/midas_v2_model.py class attributes),
+    registered as `midas2`; it has no matrix products to speak of."""
 
     align = 32
     learning_rate = 1e-6
     lambda_view_baseline = 1e-4
     checkpoint = "midas_v21-f6b98070.pt"
     checkpoint_env = "MIDAS_CHECKPOINT"
-    matmul_tf32 = False
-    read_checkpoint = staticmethod(load_checkpoint)
-
-    def __init__(self, net: nn.Module | None = None):
-        self.net = self.new_net() if net is None else net
 
     @staticmethod
     def new_net() -> nn.Module:
         return MidasNet()
-
-    @classmethod
-    def from_checkpoint(cls, path: str):
-        net = cls.new_net()
-        net.load_state_dict(cls.read_checkpoint(path))
-        return cls(net)
-
-    def estimate_depth(self, images: torch.Tensor, scales=None) -> torch.Tensor:
-        """images: (B, H, W, 3) in [0, 1] on the net's device -> depth
-        (B, H, W), in eval mode (running BatchNorm statistics) without
-        gradients, matrix products in TF32 where `matmul_tf32`; `scales`
-        divides the disparity first."""
-        training = self.net.training
-        self.net.eval()
-        try:
-            with torch.no_grad(), float32_precision(torch.backends.cudnn.allow_tf32,
-                                                    self.matmul_tf32):
-                disparity = self.net(self.net.normalize(images).permute(0, 3, 1, 2).contiguous())
-                return disparity_to_depth(disparity if scales is None else disparity / scales)
-        finally:
-            self.net.train(training)

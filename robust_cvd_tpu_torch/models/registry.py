@@ -2,13 +2,7 @@
 
 After robust_cvd_tpu/models/registry.py. The reference registers only
 `midas2`, here the port's MidasV2Adapter; the port adds `dpt_large`
-(models/dpt.py::DPTLargeAdapter, MiDaS v3.0). Adapters expose the
-requirement attributes the CLI resolves from (`align`, `learning_rate`,
-`lambda_view_baseline`, reference params.py:245-255), their checkpoint's
-file name and environment variable (`checkpoint`, `checkpoint_env`),
-`from_checkpoint(path)`, whether their net runs matrix products in TF32
-(`matmul_tf32`), the net (`net`, whose `normalize` is its input
-normalisation) and batched `estimate_depth`.
+(DPTLargeAdapter, MiDaS v3.0). Both fill in models/depth_model.py's contract.
 """
 
 from __future__ import annotations

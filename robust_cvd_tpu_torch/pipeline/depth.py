@@ -5,8 +5,8 @@ depth_fine_tuning.py save_depth, 227-294). Writes
 `depth_{model}/depth/frame_%06d.raw` (disparity-encoded).
 
 Precision on the card: float32 weights and activations, cuDNN
-convolutions in TF32 and matrix products in full float32 (in TF32 where
-the adapter asks, `matmul_tf32`), set explicitly for the stage.
+convolutions in TF32, matrix products as the adapter's `precision` says
+(models/depth_model.py), set explicitly for the stage.
 
 On a data mesh (parallel/mesh.py) each rank infers its shard of the frames
 (padded with copies of frame 0, as the JAX package pads), every rank gets
@@ -21,9 +21,9 @@ import time
 import numpy as np
 import torch
 
-from ..device import float32_precision, resolve_device
+from ..device import resolve_device
 from ..io.store import VideoStore
-from ..models.midas import depth_apply
+from ..models.depth_model import depth_apply
 from ..parallel import mesh as pmesh
 
 
@@ -61,7 +61,7 @@ def compute_initial_depth(
         images = images[mesh.shard(images.shape[0])]
     n = images.shape[0]
     outs = []
-    with torch.no_grad(), float32_precision(cudnn_tf32=True, matmul_tf32=adapter.matmul_tf32):
+    with torch.no_grad(), adapter.precision(True):
         for s in range(0, n, batch):
             t0 = time.perf_counter()
             chunk = images[s : s + batch]

@@ -22,10 +22,9 @@ the replay of a CUDA graph of the whole step, captured once per batch size
 
 Precision on the card: float32 parameters, activations and Adam state;
 cuDNN convolutions in TF32 unless the tuner is built with
-cudnn_tf32=False; the net's matrix products in TF32 where its adapter asks
-(`matmul_tf32`, DPT) and the tuner allows TF32, in full float32 otherwise;
-the loss stack and geometry in full float32. The net's input normalisation
-is its own (`net.normalize`).
+cudnn_tf32=False; the net's matrix products by its adapter's `precision`
+(models/depth_model.py); the loss stack and geometry in full float32. The
+forward is models/depth_model.py's, with the net's own `normalize`.
 
 recon=colmap: the poses come fixed from the COLMAP reconstruction
 (`pose_state_override`) and the solver never runs; with a reference
@@ -51,7 +50,7 @@ statistics, and takes the same steps: the JAX package's jit over a
 batch-sharded step. A step's global batch is batch_size pairs a rank
 (B = min(batch_size * n, P) // n * n), each rank takes its columns of the
 epoch's permutation, BatchNorm's train-mode statistics, the loss and the
-gradient are those of the global batch (models/midas.py
+gradient are those of the global batch (models/layers.py
 global_batch_stats, FlatAdam.step), and the trailing partial batch runs
 whole on every rank. Every rank runs the pose solves on its share of the
 constraints (parallel/mesh.py::shard_pose_inputs; the solver sums over
@@ -81,10 +80,9 @@ import torch
 
 from ..camera import pose_params_to_camera, quat_to_matrix
 from ..config import LossParams, PipelineConfig
-from ..device import float32_precision, resolve_device
-from ..models.midas import (
-    commit_batch_stats, depth_apply, global_batch_stats, per_slice_batch_stats,
-)
+from ..device import resolve_device
+from ..models.depth_model import depth_apply
+from ..models.layers import commit_batch_stats, global_batch_stats, per_slice_batch_stats
 from ..ops import geometry
 from ..parallel.mesh import is_writer
 from ..solver import pose_opt, xforms
@@ -259,13 +257,11 @@ def _batch(batch_ids: torch.Tensor, clip: ClipData, ps: PoseState, use_temporal:
 
 def _train_mode_depth(net, images: torch.Tensor, frames: torch.Tensor, clip: ClipData,
                       ps: PoseState) -> torch.Tensor:
-    """Train-mode depth (B, K, H, W) of images (B, K, H, W, 3), normalised
-    by the net's own `normalize`, times the scale maps, rescaled to the
-    COLMAP reference where it is set."""
+    """Train-mode depth (B, K, H, W) of images (B, K, H, W, 3) times the
+    scale maps, rescaled to the COLMAP reference where it is set."""
     b, k, h, w, _ = images.shape
     net.train()
-    x = net.normalize(images.reshape(b * k, h, w, 3)).permute(0, 3, 1, 2).contiguous()
-    depth = (1.0 / (net(x) + 1e-7)).reshape(b, k, h, w) * ps.scales[frames]
+    depth = depth_apply(net, images.reshape(b * k, h, w, 3)).reshape(b, k, h, w) * ps.scales[frames]
     if clip.ref_disp is not None:
         depth = depth * colmap_depth_scale(depth, clip.ref_disp[frames])[..., None, None]
     return depth
@@ -404,7 +400,6 @@ class FineTuner:
         self.mesh = mesh
         self.n_mesh = 1 if mesh is None else mesh.size
         self.cudnn_tf32 = cudnn_tf32
-        self.matmul_tf32 = cudnn_tf32 and adapter.matmul_tf32
         self.pose_state_override = pose_state_override
         self.adapter = adapter
         self.net = adapter.net.to(self.device)
@@ -467,13 +462,10 @@ class FineTuner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _precision(self):
-        return float32_precision(self.cudnn_tf32, self.matmul_tf32)
-
     def train_step(self, batch_ids: torch.Tensor):
         """One step on this rank's pairs `batch_ids` (see train_step):
         through the step graph where there is one, else eagerly."""
-        with self._precision():
+        with self.adapter.precision(self.cudnn_tf32):
             if self.step_graph is not None:
                 return self.step_graph(self.cfg.loss, batch_ids, self.clip, self.pose_state,
                                        self.use_temporal)
@@ -728,7 +720,7 @@ class FineTuner:
         batch = max(1, min(self.cfg.ft.batch_size, n_pairs))
         ids = torch.arange(n_pairs, device=self.device)
         totals, parts = [], []
-        with self._precision():
+        with self.adapter.precision(self.cudnn_tf32):
             for s in range(0, n_pairs, batch):
                 t, p = eval_losses(
                     self.net, self.optimizer.flat, self.optimizer.init, self.cfg.loss,
@@ -896,7 +888,7 @@ class FineTuner:
         n = images.shape[0]
         outs = []
         self.net.eval()
-        with torch.no_grad(), self._precision():
+        with torch.no_grad(), self.adapter.precision(self.cudnn_tf32):
             for s in range(0, n, batch):
                 chunk = images[s : s + batch]
                 pad = batch - chunk.shape[0]

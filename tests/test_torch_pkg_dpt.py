@@ -17,12 +17,14 @@ nets by the checkpoint's keys.
 - The state-dict keys are MiDaS v3.0's, with DPT-Large's shapes and
   parameter count.
 - The registry gives DPTLargeAdapter for `dpt_large`, _depth_model follows
-  cfg.model_type, and a missing checkpoint names its file and variable.
+  cfg.model_type, and a missing checkpoint names its file and variable; a
+  third model, a DepthModel defined in the test and registered there,
+  loads, trains a step and infers with no file of the port edited.
 - MiDaS v2's outputs and gradients are bit for bit what the blocks gave
   before they were shared.
-- TF32 matrix products are scoped to the DPT adapter; the four DPT spans
-  sit inside train.forward; the CLI runs `--model_type dpt_large` end to
-  end.
+- TF32 matrix products are scoped to the DPT adapter and to callers that
+  allow TF32; the four DPT spans sit inside train.forward; the CLI runs
+  `--model_type dpt_large` end to end.
 """
 
 import functools
@@ -32,13 +34,14 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 import plain_dpt
 from torch_pkg_threads import one_torch_thread  # noqa: F401
 
 from robust_cvd_tpu_torch.config import FineTuneParams, PipelineConfig
-from robust_cvd_tpu_torch.models import dpt, midas, registry
+from robust_cvd_tpu_torch.models import depth_model, dpt, layers, midas, registry
 from robust_cvd_tpu_torch.pipeline.process import DatasetProcessor
 from robust_cvd_tpu_torch.training import fine_tune
 from robust_cvd_tpu_torch.training.fine_tune import FineTuner, PoseState, build_clip_data
@@ -73,7 +76,7 @@ def test_forward_matches_the_plain_reference(dtype, tol):
     x = _images(dtype)
     with torch.no_grad():
         want = plain_dpt.depth(ref, x)
-        got = midas.depth_apply(port, x)
+        got = depth_model.depth_apply(port, x)
         assert got.dtype == dtype and got.shape == (2, H, W)
         assert (got - want).abs().max() <= tol * want.abs().max()
         # the raw disparity too, where the seeded head does not squash it
@@ -90,16 +93,16 @@ def test_midas_v2_choices_do_not_leak_into_dpt(choice):
     align_corners=False. Each of MiDaS v2's choices, put into the DPT net,
     moves its output far from the plain reference."""
     port, ref = _nets(dtype=torch.float64, head_scale=False)
-    units = [m for m in port.modules() if isinstance(m, midas.ResidualConvUnit)]
+    units = [m for m in port.modules() if isinstance(m, layers.ResidualConvUnit)]
     assert len(units) == 8
     head_up = port.scratch.output_conv[1]
     assert all(not u.relu_skip for u in units) and head_up.align_corners is True
     mid = midas.MidasNet(features=8, backbone_layers=(1, 1, 1, 1))
-    assert all(m.relu_skip for m in mid.modules() if isinstance(m, midas.ResidualConvUnit))
+    assert all(m.relu_skip for m in mid.modules() if isinstance(m, layers.ResidualConvUnit))
     assert mid.scratch.output_conv[1].align_corners is False
 
     # a unit with zero convolutions returns its skip: x for DPT
-    unit = midas.ResidualConvUnit(3, relu_skip=False)
+    unit = layers.ResidualConvUnit(3, relu_skip=False)
     for p in unit.parameters():
         torch.nn.init.zeros_(p)
     x = torch.randn(1, 3, 4, 4)
@@ -187,12 +190,50 @@ def test_the_registry_gives_dpt_large():
         registry.get_depth_model("no_such_model")
 
 
-@pytest.mark.parametrize("model_type", ["dpt_large", "midas2"])
+class _ToyNet(nn.Module):
+    """Two convolutions to a disparity in (1, 2), with an input
+    normalisation of its own."""
+
+    @staticmethod
+    def normalize(images):
+        return images * 2.0 - 1.0
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 4, 3, padding=1)
+        self.conv2 = nn.Conv2d(4, 1, 3, padding=1)
+
+    def forward(self, x):
+        return 1.0 + torch.sigmoid(self.conv2(F.relu(self.conv1(x))))[:, 0]
+
+
+class _ToyAdapter(depth_model.DepthModel):
+    """A third depth model, filled in from the contract alone."""
+
+    align = 16
+    learning_rate = 1e-4
+    lambda_view_baseline = 1e-4
+    checkpoint = "toy_depth.pt"
+    checkpoint_env = "TOY_DEPTH_CHECKPOINT"
+
+    @staticmethod
+    def new_net():
+        return _ToyNet()
+
+
+@pytest.mark.parametrize("model_type", ["dpt_large", "midas2", "toy"])
 def test_depth_model_follows_the_model_type(model_type, tmp_path, monkeypatch):
     """_depth_model builds the adapter cfg.model_type names from
     <path>/models/<its checkpoint>, or from its environment variable, and
-    a missing checkpoint raises naming both."""
-    if model_type == "dpt_large":
+    a missing checkpoint raises naming both. The toy model, registered
+    here, also takes a train step and infers the clip's depth."""
+    if model_type == "toy":
+        monkeypatch.setattr(registry, "_REGISTRY", dict(registry._REGISTRY))
+        cls = registry.register("toy")(_ToyAdapter)
+        torch.manual_seed(0)
+        net = _ToyNet()
+        blob = net.state_dict()
+    elif model_type == "dpt_large":
         monkeypatch.setattr(dpt, "DPTDepthNet", functools.partial(dpt.DPTDepthNet, **SMALL))
         net, cls = _nets()[0], dpt.DPTLargeAdapter
         # MiDaS's {"model", "optimizer"} layout loads too
@@ -201,7 +242,8 @@ def test_depth_model_follows_the_model_type(model_type, tmp_path, monkeypatch):
         monkeypatch.setattr(midas, "MidasNet", functools.partial(
             midas.MidasNet, features=8, backbone_layers=(1, 1, 1, 1)))
         net, cls = midas.seeded_init_(midas.MidasNet(), 0), midas.MidasV2Adapter
-        blob = net.state_dict()
+        # a DataParallel checkpoint under "state_dict" loads too
+        blob = {"state_dict": {"module." + k: v for k, v in net.state_dict().items()}}
     monkeypatch.delenv(cls.checkpoint_env, raising=False)
     cfg = PipelineConfig(path=str(tmp_path), model_type=model_type)
     with pytest.raises(FileNotFoundError) as e:
@@ -215,12 +257,18 @@ def test_depth_model_follows_the_model_type(model_type, tmp_path, monkeypatch):
     assert type(adapter) is cls
     for k, v in net.state_dict().items():
         assert torch.equal(adapter.net.state_dict()[k], v), k
+    if model_type == "toy":
+        tuner, _ = _tuner(dtype=torch.float32, adapter=adapter)
+        loss, _, ok = tuner.train_step(torch.tensor([0, 2]))
+        depth = tuner.infer_depth(batch=2)
+        assert bool(ok) and math.isfinite(float(loss))
+        assert depth.shape == (N, H, W) and torch.isfinite(depth).all() and (depth > 0).all()
 
 
-def _tuner(dtype=torch.float64, seed=0, cudnn_tf32=False):
-    """A FineTuner of the small DPT on an N-frame clip: seeded images,
-    depths, flows and masks, and a seeded pose state; everything in
-    `dtype`."""
+def _tuner(dtype=torch.float64, seed=0, cudnn_tf32=False, adapter=None):
+    """A FineTuner of the small DPT (or of `adapter`) on an N-frame clip:
+    seeded images, depths, flows and masks, and a seeded pose state;
+    everything in `dtype`."""
     rng = np.random.default_rng(seed)
     images = rng.uniform(0, 1, (N, H, W, 3)).astype(np.float32)
     depth = rng.uniform(1, 3, (N, H, W)).astype(np.float32)
@@ -250,7 +298,7 @@ def _tuner(dtype=torch.float64, seed=0, cudnn_tf32=False):
     )
     port, ref = _nets(dtype=dtype)
     cfg = PipelineConfig(ft=FineTuneParams(save_tensorboard=False, learning_rate=LR))
-    tuner = FineTuner(cfg, dpt.DPTLargeAdapter(port), clip, None, device="cpu",
+    tuner = FineTuner(cfg, adapter or dpt.DPTLargeAdapter(port), clip, None, device="cpu",
                       cudnn_tf32=cudnn_tf32)
     tuner.pose_state = ps
     return tuner, ref
@@ -293,21 +341,35 @@ def test_one_train_step_matches_the_plain_step():
         assert (opt.named_views(opt.flat)[n] - step).abs().max() <= 1e-3 * LR, n
 
 
-def test_tf32_matrix_products_are_scoped_to_the_dpt_adapter():
+def _record_precision(net, seen):
+    net.register_forward_hook(lambda *_: seen.append(torch.get_float32_matmul_precision()))
+
+
+def test_tf32_matrix_products_are_scoped_to_the_dpt_adapter(monkeypatch):
     """The DPT net's forward runs with TF32 matrix products ("high") in the
     train step and the adapter's inference, MiDaS v2's with "highest"; the
-    caller's setting comes back afterwards, and a tuner built without TF32
-    keeps DPT in full float32."""
+    caller's setting comes back afterwards. A tuner built without TF32,
+    and the adapter's inference with cuDNN's TF32 off, keep DPT in full
+    float32."""
     seen = []
     tuner, _ = _tuner(dtype=torch.float32, cudnn_tf32=True)
-    tuner.net.register_forward_hook(
-        lambda *_: seen.append(torch.get_float32_matmul_precision()))
+    _record_precision(tuner.net, seen)
     old = torch.get_float32_matmul_precision()
     tuner.train_step(torch.tensor([0, 1]))
     tuner.adapter.estimate_depth(tuner.clip.images[:1])
     tuner.infer_depth(batch=2)
     assert seen == ["high"] * 4 and torch.get_float32_matmul_precision() == old
-    assert _tuner(dtype=torch.float32, cudnn_tf32=False)[0].matmul_tf32 is False
+    seen.clear()
+    with monkeypatch.context() as m:
+        m.setattr(torch.backends.cudnn, "allow_tf32", False)
+        tuner.adapter.estimate_depth(tuner.clip.images[:1])
+    assert seen == ["highest"]
+    seen.clear()
+    plain, _ = _tuner(dtype=torch.float32, cudnn_tf32=False)
+    _record_precision(plain.net, seen)
+    plain.train_step(torch.tensor([0, 1]))
+    plain.infer_depth(batch=2)
+    assert seen == ["highest"] * 3 and torch.get_float32_matmul_precision() == old
     assert midas.MidasV2Adapter.matmul_tf32 is False and dpt.DPTLargeAdapter.matmul_tf32
 
 
@@ -338,9 +400,9 @@ def _old_midas_blocks(monkeypatch):
     def up(self, x):
         return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
 
-    monkeypatch.setattr(midas.ResidualConvUnit, "forward", rcu)
-    monkeypatch.setattr(midas.FeatureFusionBlock, "forward", fusion)
-    monkeypatch.setattr(midas._Upsample2x, "forward", up)
+    monkeypatch.setattr(layers.ResidualConvUnit, "forward", rcu)
+    monkeypatch.setattr(layers.FeatureFusionBlock, "forward", fusion)
+    monkeypatch.setattr(layers._Upsample2x, "forward", up)
 
 
 def test_midas_v2_is_bit_for_bit_unchanged(monkeypatch):
@@ -352,10 +414,10 @@ def test_midas_v2_is_bit_for_bit_unchanged(monkeypatch):
     def run():
         net.eval()
         with torch.no_grad():
-            d = midas.depth_apply(net, x)
+            d = depth_model.depth_apply(net, x)
         net.train()
         net.zero_grad()
-        midas.depth_apply(net, x).mean().backward()
+        depth_model.depth_apply(net, x).mean().backward()
         return [d] + [p.grad.clone() for p in net.parameters() if p.grad is not None]
 
     new = run()
@@ -421,7 +483,10 @@ def test_the_cli_runs_dpt_large(tmp_path, monkeypatch):
                  "--opt.lm_max_outer", "4", "--opt.lm_cg_iters", "8"], device="cpu")
     assert built == [os.path.join(base, "models", dpt.DPTLargeAdapter.checkpoint)]
     assert isinstance(proc.tuner.adapter, dpt.DPTLargeAdapter)
-    assert proc.tuner.matmul_tf32 is True
+    seen = []
+    _record_precision(proc.tuner.net, seen)
+    proc.tuner.infer_depth(batch=n)
+    assert seen == ["high"]
     assert len(proc.tuner.history) == 1 and proc.tuner.history[0]["skipped"] == 0
     assert os.path.basename(proc.out_dir(n)).endswith("_dpt_large")
     depth0 = store.load_depth_stream("depth_dpt_large")

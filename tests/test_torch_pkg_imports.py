@@ -4,6 +4,9 @@
 - No source of the port (nor chip_smoke.py, nor the port's tools) imports
   them. tools/registration_share.py is not one of them: it runs the JAX
   package on purpose, to measure the reference.
+- The training and pipeline layers reach the depth models only through
+  the model-neutral modules (models/depth_model.py, models/layers.py, the
+  registry), and DPT takes nothing from MiDaS v2's module.
 - The copied configuration keeps the JAX package's defaults, and the copied
   writers produce byte-identical files.
 - Entry points raise without CUDA unless the caller asks for the CPU, and a
@@ -82,6 +85,38 @@ def test_sources_import_no_jax_or_jax_package():
                 bad.append((f, name))
     assert not bad
     assert len(files) >= 20
+
+
+def _absolute_imports(path):
+    """Every module the port's source `path` imports, relative imports
+    resolved; `from package import name` gives package.name as well, since
+    the name may be a module."""
+    package = os.path.relpath(os.path.dirname(path), os.path.dirname(PKG_DIR)).split(os.sep)
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package[: len(package) - node.level + 1] if node.level else []
+            module = ".".join(base + ([node.module] if node.module else []))
+            yield module
+            yield from (f"{module}.{a.name}" for a in node.names)
+
+
+def test_depth_model_layer_is_model_neutral():
+    models = "robust_cvd_tpu_torch.models."
+    bad = []
+    for sub in ("training", "pipeline"):
+        for root, _, names in os.walk(os.path.join(PKG_DIR, sub)):
+            for f in (os.path.join(root, n) for n in names if n.endswith(".py")):
+                bad += [(f, m) for m in _absolute_imports(f)
+                        if m.startswith((models + "midas", models + "dpt"))]
+    dpt = os.path.join(PKG_DIR, "models", "dpt.py")
+    bad += [(dpt, m) for m in _absolute_imports(dpt) if m.startswith(models + "midas")]
+    assert not bad
+    # the relative imports are seen: the train step's forward and BatchNorm
+    seen = set(_absolute_imports(os.path.join(PKG_DIR, "training", "fine_tune.py")))
+    assert {models + "depth_model.depth_apply", models + "layers.commit_batch_stats"} <= seen
+    assert models + "layers.FeatureFusionBlock" in set(_absolute_imports(dpt))
 
 
 def test_config_defaults_identical():

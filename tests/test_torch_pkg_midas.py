@@ -17,6 +17,7 @@ import torch
 
 from robust_cvd_tpu.models import midas as jm
 from robust_cvd_tpu.models.torch_port import convert_midas_v2
+from robust_cvd_tpu_torch.models import depth_model
 from robust_cvd_tpu_torch.models import midas as tm
 
 
@@ -57,7 +58,7 @@ def test_disparity_and_depth_match(small_nets):
 
     want_d = np.asarray(jm.depth_apply(fnet, variables, jnp.asarray(x)))
     with torch.no_grad():
-        got_d = tm.depth_apply(tnet, torch.from_numpy(x)).numpy()
+        got_d = depth_model.depth_apply(tnet, torch.from_numpy(x)).numpy()
     live = want > 1e-3  # depth = 1/(disparity + 1e-7) explodes where clipped
     np.testing.assert_allclose(got_d[live], want_d[live], rtol=1e-3)
 
@@ -96,5 +97,5 @@ def test_seeded_init_is_deterministic_and_positive():
         assert ka == kb and torch.equal(va, vb)
     x = torch.rand((1, 64, 64, 3), generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
-        depth = tm.depth_apply(a.eval(), x)
+        depth = depth_model.depth_apply(a.eval(), x)
     assert torch.isfinite(depth).all() and (depth > 0).all() and depth.max() < 10

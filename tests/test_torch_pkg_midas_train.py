@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from robust_cvd_tpu.models import midas as jm
+from robust_cvd_tpu_torch.models import layers
 from robust_cvd_tpu_torch.models import midas as tm
 
 
@@ -77,7 +78,7 @@ def test_train_mode_output_and_stats(nets):
     _close(out.detach().numpy(), want_out, "train-mode output")
 
     before = {k: v.clone() for k, v in tnet.state_dict().items() if "running" in k}
-    tm.commit_batch_stats(tnet, torch.tensor(False))
+    layers.commit_batch_stats(tnet, torch.tensor(False))
     for k, v in tnet.state_dict().items():
         if "running" in k:
             assert torch.equal(v, before[k]), f"{k} moved on a skipped step"
@@ -85,7 +86,7 @@ def test_train_mode_output_and_stats(nets):
     # the same forward again, then the update with the flag set
     with torch.no_grad():
         tnet(_nchw(x))
-    tm.commit_batch_stats(tnet, torch.tensor(True))
+    layers.commit_batch_stats(tnet, torch.tensor(True))
     want_sd = tm.state_dict_from_jax(params, jax.tree.map(np.asarray, want_stats))
     sd = tnet.state_dict()
     n_stats = 0
@@ -94,7 +95,7 @@ def test_train_mode_output_and_stats(nets):
             _close(v.numpy(), want_sd[k].numpy(), k)
             assert not torch.equal(v, before[k]), f"{k} did not move"
             n_stats += 1
-    assert n_stats == 2 * len(tm.batch_norms(tnet)) > 0
+    assert n_stats == 2 * len(layers.batch_norms(tnet)) > 0
 
 
 def test_train_mode_parameter_gradients(nets):
