@@ -27,7 +27,16 @@ Phases, each of which raises on failure (exit code 1):
      kernels line has an entry for optax.adam (adam), optax.radam
      (adam_radam, beside one call of torch.optim.RAdam(foreach=True))
      and the bf16
-     first moment (adam_mu_bf16, no PyTorch call to compare).
+     first moment (adam_mu_bf16, no PyTorch call to compare);
+   - the ViT attention (csrc/vit_attention.cu, attention_phase): forward
+     and backward against the plain version in float64 at ATTENTION_CHECKS
+     (N 1, 65, 577 and the DPT cell's (4, 1009, 16)), the output and each
+     of dq, dk, dv within twice F.scaled_dot_product_attention's float32
+     error on the same input; its entry times forward, backward and both
+     back to back at the cell's shape beside the 3xTF32 bound, the plain
+     version (forward and backward, one call), SDPA's forward and backward
+     (library_ms) and the kernels' registers, local bytes and shared
+     memory (attention_entry).
 3. solver: the pose solve of a small exact-reprojection problem on the card
    against the same solve on the CPU (poses within 1e-3); the same cold
    solve on the card with the exact diagonal off and 4 Hutchinson probes
@@ -237,7 +246,8 @@ EXCLUSION_MARGIN = 0.3  # tests/test_quality.py: off < on - 0.3
 EVAL_TOL = 1e-4  # eval losses, card vs CPU, relative
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
-KERNELS = ("corner_min_eigenval", "adam")  # csrc/<name>.cu
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
+KERNELS = ("corner_min_eigenval", "adam", "vit_attention")  # csrc/<name>.cu
 L2_BYTES = 50e6  # H100 SXM
 BACK_TO_BACK = 60  # launches between one event pair
 SPIN_CYCLES = 50_000_000  # torch.cuda._sleep ahead of them, ~25 ms
@@ -563,6 +573,163 @@ def adam_entry(name: str, options: dict, per_elem: int, flops: int, base, lr: fl
           f"parameter); library call {library}"
           + ("" if library_ms is None else f" {library_ms:.4f} ms"))
     del bufs
+    return result
+
+
+# The DPT cell's attention (frames, tokens, heads): 4 frames (2 pairs) of
+# 1,009 tokens (the 24x42 patch grid of 384x672 and the class token), 16
+# heads of 64; and the checks' shapes: one token, one past a 64-key tile,
+# 577 (ViT's 24x24 grid and the class token)
+ATTENTION_SHAPE = (4, 1009, 16)
+ATTENTION_CHECKS = ((1, 1, 2), (2, 65, 3), (1, 577, 4), ATTENTION_SHAPE)
+ATTENTION_NAMES = ("flash_attention_fwd_prep", "flash_attention_fwd", "flash_attention_bwd_prep",
+                   "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+
+
+def attention_errors(b: int, n: int, h: int, seed: int) -> dict:
+    """The attention kernels' and F.scaled_dot_product_attention's (float32)
+    largest errors against the plain version in float64 on the same random
+    input, for the output and each of dq, dk, dv: max|err| / max|ref| (for a
+    gradient that is 0, as dq and dk are at N = 1, over the largest of the
+    whole gradient)."""
+    import torch
+    import torch.nn.functional as F
+
+    from robust_cvd_tpu_torch.ops import attention
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, n, 3, h, 64), generator=g, device="cuda")
+    dout = torch.randn((b, n, h, 64), generator=g, device="cuda")
+
+    def sdpa(x):
+        q, k, v = x.permute(2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(q, k, v).transpose(1, 2)
+
+    def run(fn, x):
+        x = x.detach().requires_grad_(True)
+        y = fn(x)
+        y.backward(dout.to(x.dtype))
+        return y.detach().double(), x.grad.double()
+
+    ref = run(attention.attention_plain, qkv.double())
+    errs = {}
+    for name, fn in (("kernel", attention.vit_attention), ("sdpa", sdpa)):
+        y, dx = run(fn, qkv)
+        pairs = [("out", y, ref[0])] + [(f"d{c}", dx[:, :, i], ref[1][:, :, i])
+                                        for i, c in enumerate("qkv")]
+        scale = ref[1].abs().max()
+        errs[name] = {k: float((a - r).abs().max() / (r.abs().max() or scale))
+                      for k, a, r in pairs}
+    return errs
+
+
+def attention_phase(seed: int) -> dict:
+    """The attention kernels against the plain version in float64, forward
+    and backward, at ATTENTION_CHECKS: each error at most twice
+    F.scaled_dot_product_attention's in float32 on the same input (or one
+    float32 rounding, 2^-24, where SDPA's is below it); then its
+    kernels-line entry."""
+    worst = 0.0
+    for b, n, h in ATTENTION_CHECKS:
+        errs = attention_errors(b, n, h, seed)
+        line = ", ".join(f"{k} {v:.3e} (sdpa {errs['sdpa'][k]:.3e})"
+                         for k, v in errs["kernel"].items())
+        print(f"vit_attention ({b}, {n}, 3, {h}, 64) vs float64: {line}")
+        for k, v in errs["kernel"].items():
+            worst = max(worst, v)
+            if not v <= max(2 * errs["sdpa"][k], 2.0 ** -24):
+                raise AssertionError(f"vit_attention {k} at ({b}, {n}, {h}): error {v:.3e}, "
+                                     f"more than twice SDPA's {errs['sdpa'][k]:.3e}")
+    return attention_entry(seed, worst)
+
+
+def attention_entry(seed: int, err: float) -> dict:
+    """Times the attention kernels at the DPT cell's shape: forward,
+    backward, and both, back to back through the raw launchers over two
+    input sets (each 50 MB, the L2's size); the plain version (float32,
+    forward and backward, one call) and F.scaled_dot_product_attention's
+    forward and backward (back to back); the kernels' registers, local
+    (spill) bytes and shared memory. Returns its kernels-line entry."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+
+    from robust_cvd_tpu_torch.ops import attention
+
+    b, n, h = ATTENTION_SHAPE
+    lib = attention._library()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sets = [dict(qkv=torch.randn((b, n, 3, h, 64), generator=g, device="cuda"),
+                 dout=torch.randn((b, n, h, 64), generator=g, device="cuda")) for _ in range(2)]
+    for t in sets:
+        t["out"], t["lse"] = attention.forward_kernel(t["qkv"])
+        t["dqkv"] = torch.empty_like(t["qkv"])
+    fs, bs = (attention._scratch(lib, sets[0]["qkv"], back) for back in (False, True))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def fwd(i):
+        t = sets[i % 2]
+        attention._raise(lib.vit_attention_forward(
+            t["qkv"].data_ptr(), t["out"].data_ptr(), t["lse"].data_ptr(), fs.data_ptr(), b, n,
+            h, stream), "forward")
+
+    def bwd(i):
+        t = sets[i % 2]
+        attention._raise(lib.vit_attention_backward(
+            t["qkv"].data_ptr(), t["out"].data_ptr(), t["lse"].data_ptr(), t["dout"].data_ptr(),
+            t["dqkv"].data_ptr(), bs.data_ptr(), b, n, h, stream), "backward")
+
+    fwd_ms, bwd_ms = back_to_back_ms(fwd, k=20), back_to_back_ms(bwd, k=20)
+    both_ms = back_to_back_ms(lambda i: (fwd(i), bwd(i)), k=20)
+    qkv, dout = sets[0]["qkv"], sets[0]["dout"]
+    x = qkv.detach().requires_grad_(True)
+    call_ms = time_ms(lambda: torch.autograd.grad(attention.vit_attention(x), x, dout), reps=10)
+    plain_ms = time_ms(lambda: torch.autograd.grad(attention.attention_plain(x), x, dout), reps=5)
+    q, k, v = (t.detach().requires_grad_(True) for t in qkv.permute(2, 0, 3, 1, 4))
+    y = F.scaled_dot_product_attention(q, k, v)
+    dy = dout.transpose(1, 2)
+    lib_fwd = back_to_back_ms(lambda _: F.scaled_dot_product_attention(q, k, v), k=20)
+    lib_bwd = back_to_back_ms(lambda _: torch.autograd.grad(y, (q, k, v), dy, retain_graph=True),
+                              k=20)
+    info = {}
+    for i, name in enumerate(ATTENTION_NAMES):
+        regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        attention._raise(lib.vit_attention_kernel_info(i, ctypes.byref(regs), ctypes.byref(local),
+                                                       ctypes.byref(smem)), "info")
+        info[name] = {"registers": regs.value, "local_bytes": local.value,
+                      "shared_bytes": smem.value}
+    flops = 4.0 * b * h * n * n * 64  # q k^T and p v, a forward call
+    fwd_bound_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3  # three TF32 products a product
+    result = {
+        "name": "vit_attention",
+        "route": "cuda",
+        "source": "robust_cvd_tpu_torch/csrc/vit_attention.cu",
+        "replaces": "F.scaled_dot_product_attention (float32), models/dpt.py::Attention",
+        "max_abs_err": err,
+        "ms": both_ms,
+        "forward_ms": fwd_ms,
+        "backward_ms": bwd_ms,
+        "call_ms": call_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": 3 * fwd_bound_ms,  # the forward, and the backward at twice its products
+        "bound_by": "operations (3xTF32)",
+        "library_ms": lib_fwd + lib_bwd,
+        "library_forward_ms": lib_fwd,
+        "library_backward_ms": lib_bwd,
+        "share_of_bound": 3 * fwd_bound_ms / both_ms,
+        "ptxas": info,
+    }
+    print(f"vit_attention {ATTENTION_SHAPE}: forward {fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms, "
+          f"both {both_ms:.4f} ms back to back ({result['share_of_bound']:.3f} of the 3xTF32 "
+          f"bound {3 * fwd_bound_ms:.4f} ms; forward {flops / 1e9:.2f} GFLOP: "
+          f"{flops / PEAK_TF32_FLOPS * 1e6:.1f} us at the TF32 peak, {fwd_bound_ms * 1e3:.1f} us "
+          f"at 3xTF32; backward {2 * flops / 1e9:.2f} GFLOP, {2 * flops / PEAK_TF32_FLOPS * 1e6:.1f} / "
+          f"{2 * fwd_bound_ms * 1e3:.1f} us), one forward and backward call {call_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, library F.scaled_dot_product_attention forward "
+          f"{lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms; kernels {info}")
+    del sets, fs, bs, x, q, k, v, y
+    torch.cuda.empty_cache()
     return result
 
 
@@ -2939,6 +3106,9 @@ def main() -> int:
     with torch.device("meta"):
         n_params = sum(p.numel() for p in MidasNet().parameters())
     adam_entries = {e["name"]: e for e in adam_phase(n_params, args.seed)}
+    t0 = time.perf_counter()
+    attention_k = attention_phase(args.seed)
+    print(f"stage attention_phase_s {time.perf_counter() - t0:.3f}")
     solver_phase(args.seed)
     sharded_solve_check()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as base:
@@ -3010,7 +3180,7 @@ def main() -> int:
         adam_entries[name]["launches"] = count
         adam_entries[name]["launches_by_path"] = {"fine_tune_epoch": count}
     print(f"total_s {time.perf_counter() - t_start:.3f}")
-    print(json.dumps({"kernels": [corner_k] + list(adam_entries.values())}))
+    print(json.dumps({"kernels": [corner_k] + list(adam_entries.values()) + [attention_k]}))
     print(smi)
     print(json.dumps({
         "ok": True,

@@ -10,8 +10,10 @@ and feeds it RGB normalised with mean 0.5 and std 0.5.
 - Encoder: timm's vit_large_patch16_384. A 16x16 patch embedding and a
   class token, plus the 24x24 position grid resized bilinearly
   (align_corners=False) to the frame's token grid; 24 pre-LayerNorm blocks
-  (eps 1e-6) of 16-head attention, softmax(q k^T / 8) v through
-  F.scaled_dot_product_attention, and an exact-erf GELU MLP of 4096.
+  (eps 1e-6) of 16-head attention, softmax(q k^T / 8) v read straight out
+  of the qkv projection (ops/attention.py::vit_attention: the Hopper
+  kernels on the card, the written-out softmax on the CPU), and an
+  exact-erf GELU MLP of 4096.
 - Reassembly: the outputs of blocks 5, 11, 17 and 23 (0-based), each with
   the "project" readout GELU(Linear([tokens, class token])), laid out on
   the token grid, then a 1x1 convolution to 256/512/1024/1024 and a 4x4
@@ -46,6 +48,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.attention import vit_attention
 from ..utils.spans import span
 from .depth_model import DepthModel
 from .layers import FeatureFusionBlock, output_head
@@ -71,9 +74,8 @@ class Attention(nn.Module):
 
     def forward(self, x):
         b, n, c = x.shape
-        q, k, v = self.qkv(x).reshape(b, n, 3, self.heads, c // self.heads).permute(2, 0, 3, 1, 4)
-        y = F.scaled_dot_product_attention(q, k, v)
-        return self.proj(y.transpose(1, 2).reshape(b, n, c))
+        y = vit_attention(self.qkv(x).reshape(b, n, 3, self.heads, c // self.heads))
+        return self.proj(y.reshape(b, n, c))
 
 
 class Mlp(nn.Module):

@@ -1,0 +1,190 @@
+"""The ViT encoder's attention (robust_cvd_tpu_torch/ops/attention.py).
+
+On the CPU (the plain version, which the CUDA kernels are held to):
+- `attention_plain` in float32 equals softmax(q k^T / 8) v computed in
+  float64 with numpy, within 2e-6 of the largest output (float32 sums of up
+  to 1,009 products), at N in {1, 63, 64, 65, 1009} (one frame, two heads).
+- DPT's `Attention.forward`, which now reads q, k and v straight out of the
+  qkv projection, equals the path it replaced (permute, then
+  F.scaled_dot_product_attention, then transpose and reshape, then the
+  output projection): the output within 1e-5 and the gradient of the
+  projection's output within 1e-5 of their largest magnitudes, in float32
+  (two float32 orders of the same sums); in float64 within 1e-12.
+- The kernel's checker refuses every input the kernel cannot take (a head
+  width other than 64, another type, a wrong shape, a non-contiguous or an
+  empty tensor) without a card; a CPU input takes the plain version and
+  launches nothing; a device that is neither raises.
+
+On the card (marked `cuda`, skipped without one; this file imports no JAX):
+- The kernels against the plain version in float64, the output and each of
+  dq, dk, dv, at the DPT cell's shape (4, 1009, 3, 16, 64) and at N in
+  {1, 65, 577}: each error at most twice F.scaled_dot_product_attention's in
+  float32 on the same input (or 2^-24 of the largest value where SDPA's is
+  below that; both printed).
+- A CUDA graph of the forward and backward, replayed, equals its eager run
+  within the kernel's error against float64.
+- One DPT train step on the card (24 blocks, heads of 64) advances
+  `vit_attention.launches` and `.backward_launches` by 24 each.
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import chip_smoke
+from torch_pkg_threads import one_torch_thread  # noqa: F401
+
+from robust_cvd_tpu_torch.models import dpt
+from robust_cvd_tpu_torch.ops import attention
+
+
+def _qkv(b, n, h, d, seed=0, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(0, 1, (b, n, 3, h, d))).to(dtype)
+
+
+def _float64_attention(qkv: np.ndarray) -> np.ndarray:
+    """softmax(q k^T / sqrt(d)) v of each frame and head, in float64."""
+    b, n, _, h, d = qkv.shape
+    out = np.empty((b, n, h, d))
+    for i in range(b):
+        for j in range(h):
+            q, k, v = (qkv[i, :, s, j].astype(np.float64) for s in range(3))
+            s = q @ k.T / np.sqrt(d)
+            p = np.exp(s - s.max(axis=1, keepdims=True))
+            out[i, :, j] = (p / p.sum(axis=1, keepdims=True)) @ v
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1009])
+def test_plain_matches_a_float64_softmax(n):
+    qkv = _qkv(1, n, 2, 64, seed=n)
+    got = attention.attention_plain(qkv)
+    assert got.dtype == torch.float32 and got.shape == (1, n, 2, 64)
+    want = _float64_attention(qkv.numpy())
+    assert np.abs(got.numpy() - want).max() <= 2e-6 * np.abs(want).max()
+
+
+def _old_forward(module, qkv):
+    """models/dpt.py::Attention.forward before the kernel: permuted views of
+    the projection's output through F.scaled_dot_product_attention."""
+    b, n = qkv.shape[:2]
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    y = F.scaled_dot_product_attention(q, k, v)
+    return module.proj(y.transpose(1, 2).reshape(b, n, -1))
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("heads, width, n", [(4, 16, 25), (2, 64, 65), (16, 64, 33)])
+def test_attention_forward_equals_the_sdpa_path(heads, width, n, dtype, tol):
+    torch.manual_seed(heads * n)
+    module = dpt.Attention(heads * width, heads).to(dtype)
+    x = torch.randn(2, n, heads * width, dtype=dtype)
+    qkv_out = module.qkv(x).detach()
+    dy = torch.randn(2, n, heads * width, dtype=dtype)
+    results = []
+    for fn in (lambda t: module.proj(attention.vit_attention(t).reshape(2, n, -1)),
+               lambda t: _old_forward(module, t)):
+        t = qkv_out.clone().reshape(2, n, 3, heads, width).requires_grad_(True)
+        y = fn(t)
+        y.backward(dy)
+        results.append((y.detach(), t.grad))
+    (y_new, g_new), (y_old, g_old) = results
+    assert (y_new - y_old).abs().max() <= tol * y_old.abs().max()
+    assert (g_new - g_old).abs().max() <= tol * g_old.abs().max()
+    with torch.no_grad():  # the module end to end
+        assert (module(x) - y_old).abs().max() <= tol * y_old.abs().max()
+
+
+@pytest.mark.parametrize("shape, dtype, why", [
+    ((1, 5, 3, 4, 16), torch.float32, "head width 16"),
+    ((1, 5, 3, 2, 128), torch.float32, "head width 128"),
+    ((1, 5, 3, 2, 64), torch.float64, "float64"),
+    ((1, 5, 3, 2, 64), torch.bfloat16, "bfloat16"),
+    ((1, 5, 2, 2, 64), torch.float32, "no v"),
+    ((5, 3, 2, 64), torch.float32, "no frame axis"),
+    ((1, 0, 3, 2, 64), torch.float32, "no tokens"),
+])
+def test_the_kernels_checker_refuses(shape, dtype, why):
+    with pytest.raises(ValueError):
+        attention.check_kernel_input(torch.zeros(shape, dtype=dtype))
+
+
+def test_the_checker_takes_the_kernels_inputs_only():
+    attention.check_kernel_input(torch.zeros((4, 1009, 3, 16, 64)))
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.check_kernel_input(torch.zeros((4, 3, 9, 16, 64)).transpose(1, 2))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        attention.vit_attention(torch.zeros((1, 5, 3, 2, 64), device="meta"))
+
+
+def test_a_cpu_input_takes_the_plain_version():
+    qkv = _qkv(2, 9, 3, 64, seed=1)
+    before = (attention.vit_attention.launches, attention.vit_attention.backward_launches)
+    x = qkv.clone().requires_grad_(True)
+    out = attention.vit_attention(x)
+    out.sum().backward()
+    assert torch.equal(out, attention.attention_plain(qkv))
+    assert (attention.vit_attention.launches,
+            attention.vit_attention.backward_launches) == before
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 2), (2, 65, 3), (1, 577, 4), (4, 1009, 16)])
+def test_kernels_match_float64_within_twice_sdpas_error(shape):
+    _card()
+    errs = chip_smoke.attention_errors(*shape, seed=5)
+    print(shape, errs)
+    for k, v in errs["kernel"].items():
+        assert v <= max(2 * errs["sdpa"][k], 2.0 ** -24), (k, v, errs["sdpa"][k])
+
+
+@pytest.mark.cuda
+def test_a_graph_replay_equals_the_eager_run():
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    qkv = torch.randn((2, 577, 3, 4, 64), generator=g, device="cuda")
+    dout = torch.randn((2, 577, 4, 64), generator=g, device="cuda")
+
+    def step():
+        out, lse = attention.forward_kernel(qkv)
+        return out, attention.backward_kernel(qkv, out, lse, dout)
+
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    tol = max(chip_smoke.attention_errors(2, 577, 4, seed=3)["kernel"].values())
+    for a, b in zip(static, eager):
+        assert (a - b).abs().max() <= tol * b.abs().max()
+
+
+@pytest.mark.cuda
+def test_a_dpt_train_step_runs_the_kernels_in_every_block():
+    _card()
+    import test_torch_pkg_dpt as tdpt
+
+    net = dpt.DPTDepthNet(hidden=128, heads=2, blocks=24, mlp=256, patch=16, pos_grid=4,
+                          hooks=(5, 11, 17, 23), widths=(16, 32, 64, 64), features=32,
+                          classes=10)
+    tuner, _ = tdpt._tuner(dtype=torch.float32, adapter=dpt.DPTLargeAdapter(net),
+                           device="cuda")
+    before = (attention.vit_attention.launches, attention.vit_attention.backward_launches)
+    loss, _, ok = tuner.train_step(torch.tensor([0, 2], device="cuda"))
+    torch.cuda.synchronize()
+    assert bool(ok) and torch.isfinite(loss)
+    assert attention.vit_attention.launches == before[0] + 24
+    assert attention.vit_attention.backward_launches == before[1] + 24

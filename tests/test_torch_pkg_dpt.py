@@ -265,10 +265,10 @@ def test_depth_model_follows_the_model_type(model_type, tmp_path, monkeypatch):
         assert depth.shape == (N, H, W) and torch.isfinite(depth).all() and (depth > 0).all()
 
 
-def _tuner(dtype=torch.float64, seed=0, cudnn_tf32=False, adapter=None):
+def _tuner(dtype=torch.float64, seed=0, cudnn_tf32=False, adapter=None, device="cpu"):
     """A FineTuner of the small DPT (or of `adapter`) on an N-frame clip:
     seeded images, depths, flows and masks, and a seeded pose state;
-    everything in `dtype`."""
+    everything in `dtype`, on `device`."""
     rng = np.random.default_rng(seed)
     images = rng.uniform(0, 1, (N, H, W, 3)).astype(np.float32)
     depth = rng.uniform(1, 3, (N, H, W)).astype(np.float32)
@@ -279,7 +279,7 @@ def _tuner(dtype=torch.float64, seed=0, cudnn_tf32=False, adapter=None):
                 flow_list.append((i, j, 0.9))
                 flows[(i, j)] = rng.normal(0, 1, (H, W, 2)).astype(np.float32)
                 masks[(i, j)] = (rng.uniform(0, 1, (H, W)) > 0.3).astype(np.float32)
-    clip = build_clip_data(images, depth, flow_list, flows, masks, 0.2, device="cpu")
+    clip = build_clip_data(images, depth, flow_list, flows, masks, 0.2, device=device)
     clip = clip._replace(**{k: v.to(dtype) for k, v in clip._asdict().items()
                             if v is not None and v.is_floating_point()})
     angles = rng.normal(0, 0.01, (N, 3))
@@ -291,14 +291,15 @@ def _tuner(dtype=torch.float64, seed=0, cudnn_tf32=False, adapter=None):
         ext[i, :, 3] = [0.02 * i, rng.normal(0, 0.002), rng.normal(0, 0.002)]
     f = W / 2 / math.tan(math.radians(30))
     ps = PoseState(
-        extrinsics=torch.tensor(ext, dtype=dtype),
-        intrinsics=torch.tensor([[f, f, (W - 1) / 2, (H - 1) / 2]] * N, dtype=dtype),
-        scales=torch.tensor(rng.uniform(0.9, 1.1, (N, H, W)), dtype=dtype),
-        warp=torch.tensor(rng.normal(0, 0.002, (N, H, W, 2)), dtype=dtype),
+        extrinsics=torch.tensor(ext, dtype=dtype, device=device),
+        intrinsics=torch.tensor([[f, f, (W - 1) / 2, (H - 1) / 2]] * N, dtype=dtype,
+                                device=device),
+        scales=torch.tensor(rng.uniform(0.9, 1.1, (N, H, W)), dtype=dtype, device=device),
+        warp=torch.tensor(rng.normal(0, 0.002, (N, H, W, 2)), dtype=dtype, device=device),
     )
     port, ref = _nets(dtype=dtype)
     cfg = PipelineConfig(ft=FineTuneParams(save_tensorboard=False, learning_rate=LR))
-    tuner = FineTuner(cfg, adapter or dpt.DPTLargeAdapter(port), clip, None, device="cpu",
+    tuner = FineTuner(cfg, adapter or dpt.DPTLargeAdapter(port), clip, None, device=device,
                       cudnn_tf32=cudnn_tf32)
     tuner.pose_state = ps
     return tuner, ref
