@@ -36,7 +36,17 @@ Phases, each of which raises on failure (exit code 1):
      back to back at the cell's shape beside the 3xTF32 bound, the plain
      version (forward and backward, one call), SDPA's forward and backward
      (library_ms) and the kernels' registers, local bytes and shared
-     memory (attention_entry).
+     memory (attention_entry);
+   - the same kernels with BEiT's relative-position bias
+     (attention_bias_phase): at ATTENTION_BIAS_CHECKS (N 1, 65, 577 and the
+     BEiT cell's (4, 1793, 16) on a 32x56 grid) the output, dq, dk, dv and
+     the table's gradient each no worse than the bias gathered into a
+     float32 mask through F.scaled_dot_product_attention (at N = 1, where
+     the exact dq, dk and dT are 0, within twice its error); its entry times
+     both paths back to back at BEiT's shape (the bias path faster than
+     the library call; whether it keeps within 1.3x the path without is
+     printed and kept in its entry) beside the plain version and the
+     library call (attention_bias_entry).
 3. solver: the pose solve of a small exact-reprojection problem on the card
    against the same solve on the CPU (poses within 1e-3); the same cold
    solve on the card with the exact diagonal off and 4 Hutchinson probes
@@ -729,6 +739,232 @@ def attention_entry(seed: int, err: float) -> dict:
           f"plain {plain_ms:.4f} ms, library F.scaled_dot_product_attention forward "
           f"{lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms; kernels {info}")
     del sets, fs, bs, x, q, k, v, y
+    torch.cuda.empty_cache()
+    return result
+
+
+# BEiT-L's cell (frames, token grid, heads): 4 frames (2 pairs) of 512x896,
+# a 32x56 patch grid and the class token (1,793 tokens), 16 heads of 64;
+# the checks' grids give N = 1 (the class token alone), 65, 577 and 1,793.
+ATTENTION_BIAS_SHAPE = (4, (32, 56), 16)
+# (N = 1 with 4 frames of 16 heads: 64 single-key rows, so that the largest
+# rounding compared is a maximum over many)
+ATTENTION_BIAS_CHECKS = ((4, (0, 0), 16), (2, (8, 8), 3), (1, (24, 24), 4), ATTENTION_BIAS_SHAPE)
+BIAS_BUDGET = 1.3  # the bias path's time over the path without, at most
+ATTENTION_BIAS_NAMES = ("flash_attention_fwd_bias", "flash_attention_bwd_dkdv_bias",
+                        "flash_attention_bwd_dq_bias")
+
+
+def _bias_inputs(b: int, grid, h: int, seed: int):
+    """Random qkv (B, N, 3, H, 64), a table (H, R) of standard normals (a
+    bias as large as the scores) and dout, on the card."""
+    import torch
+
+    wh, ww = grid
+    n, r = 1 + wh * ww, (2 * wh - 1) * (2 * ww - 1) + 3
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, n, 3, h, 64), generator=g, device="cuda")
+    table = torch.randn((h, r), generator=g, device="cuda")
+    dout = torch.randn((b, n, h, 64), generator=g, device="cuda")
+    return qkv, table, dout
+
+
+def sdpa_with_bias(x, table, grid):
+    """The library call the port would otherwise make: the bias gathered
+    from the table into an (H, N, N) float32 mask that requires a gradient,
+    then F.scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    from robust_cvd_tpu_torch.ops import attention
+
+    idx = attention.relative_position_index(grid).to(table.device)
+    q, k, v = x.permute(2, 0, 3, 1, 4)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=table[:, idx][None]).transpose(1, 2)
+
+
+def attention_bias_errors(b: int, grid, h: int, seed: int) -> dict:
+    """The bias kernels' and sdpa_with_bias's (float32) largest errors
+    against the plain version in float64 on the same random input, for the
+    output, dq, dk, dv and the table's gradient dT: max|err| / max|ref|
+    (over the whole qkv gradient's largest where a part is 0)."""
+    from robust_cvd_tpu_torch.ops import attention
+
+    qkv, table, dout = _bias_inputs(b, grid, h, seed)
+
+    def run(fn, x, t):
+        x = x.detach().requires_grad_(True)
+        t = t.detach().requires_grad_(True)
+        y = fn(x, t, grid)
+        y.backward(dout.to(x.dtype))
+        return y.detach().double(), x.grad.double(), t.grad.double()
+
+    ref = run(attention.attention_plain, qkv.double(), table.double())
+    errs = {}
+    for name, fn in (("kernel", attention.vit_attention), ("sdpa", sdpa_with_bias)):
+        y, dx, dt = run(fn, qkv, table)
+        pairs = ([("out", y, ref[0])] + [(f"d{c}", dx[:, :, i], ref[1][:, :, i])
+                                         for i, c in enumerate("qkv")] + [("dT", dt, ref[2])])
+        scale = ref[1].abs().max()
+        errs[name] = {k: float((a - r).abs().max() / (r.abs().max() or scale))
+                      for k, a, r in pairs}
+    return errs
+
+
+def bias_error_limit(errs: dict, part: str, n: int) -> float:
+    """The largest error of `part` that the bias kernels may have: SDPA's
+    (or 2^-24 where that is below it). With one token the float64 dq, dk
+    and dT are exactly 0 (one key: dS = P (dP - D) = 0) and both float32
+    results are the rounding of dP - D alone, which falls either way from
+    seed to seed: there twice SDPA's, the limit the kernels without a bias
+    are held to."""
+    lim = max(errs["sdpa"][part], 2.0 ** -24)
+    return 2 * lim if n == 1 and part in ("dq", "dk", "dT") else lim
+
+
+def attention_bias_phase(seed: int) -> dict:
+    """The bias kernels against the plain version in float64 at
+    ATTENTION_BIAS_CHECKS: out, dq, dk, dv and dT each within
+    bias_error_limit (sdpa_with_bias's float32 error on the same input);
+    then the entry with the times."""
+    worst = 0.0
+    for b, grid, h in ATTENTION_BIAS_CHECKS:
+        errs = attention_bias_errors(b, grid, h, seed)
+        n = 1 + grid[0] * grid[1]
+        line = ", ".join(f"{k} {v:.3e} (sdpa {errs['sdpa'][k]:.3e})"
+                         for k, v in errs["kernel"].items())
+        print(f"vit_attention bias ({b}, {n}, 3, {h}, 64), grid {grid} vs float64: {line}")
+        for k, v in errs["kernel"].items():
+            worst = max(worst, v)
+            if not v <= bias_error_limit(errs, k, n):
+                raise AssertionError(f"vit_attention bias {k} at ({b}, {grid}, {h}): error "
+                                     f"{v:.3e}, more than SDPA's {errs['sdpa'][k]:.3e}")
+    return attention_bias_entry(seed, worst)
+
+
+def attention_bias_entry(seed: int, err: float) -> dict:
+    """Times, at BEiT's cell shape, back to back over two input sets: the
+    bias kernels' forward, backward and both; the kernels without a bias at
+    the same shape (both); sdpa_with_bias's forward and backward, with and
+    without the gather; the plain version's one call. Raises unless the
+    bias path is faster than the library call; `within_budget` says whether
+    it takes at most BIAS_BUDGET times the path without a bias."""
+    import ctypes
+
+    import torch
+
+    from robust_cvd_tpu_torch.ops import attention
+
+    b, grid, h = ATTENTION_BIAS_SHAPE
+    wh, ww = grid
+    n = 1 + wh * ww
+    lib = attention._library()
+    sets = []
+    for i in range(2):
+        qkv, table, dout = _bias_inputs(b, grid, h, seed + i)
+        t = dict(qkv=qkv, table=table, dout=dout, dqkv=torch.empty_like(qkv),
+                 dtable=torch.zeros_like(table))
+        t["out"], t["lse"] = attention.forward_bias_kernel(qkv, table, grid)
+        t["out0"], t["lse0"] = attention.forward_kernel(qkv)
+        sets.append(t)
+    r = sets[0]["table"].shape[1]
+    pos = attention.grid_offsets(grid, "cuda")
+    fs, bs = (attention._scratch(lib, sets[0]["qkv"], back) for back in (False, True))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def fwd(i):
+        t = sets[i % 2]
+        attention._raise(lib.vit_attention_forward_bias(
+            t["qkv"].data_ptr(), t["table"].data_ptr(), pos.data_ptr(), t["out"].data_ptr(),
+            t["lse"].data_ptr(), fs.data_ptr(), b, n, h, wh, ww, stream), "forward")
+
+    def bwd(i):
+        t = sets[i % 2]
+        t["dtable"].zero_()
+        attention._raise(lib.vit_attention_backward_bias(
+            t["qkv"].data_ptr(), t["table"].data_ptr(), pos.data_ptr(), t["out"].data_ptr(),
+            t["lse"].data_ptr(), t["dout"].data_ptr(), t["dqkv"].data_ptr(),
+            t["dtable"].data_ptr(), bs.data_ptr(), b, n, h, wh, ww, stream), "backward")
+
+    def plain_both(i):
+        t = sets[i % 2]
+        attention._raise(lib.vit_attention_forward(
+            t["qkv"].data_ptr(), t["out0"].data_ptr(), t["lse0"].data_ptr(), fs.data_ptr(), b, n,
+            h, stream), "forward")
+        attention._raise(lib.vit_attention_backward(
+            t["qkv"].data_ptr(), t["out0"].data_ptr(), t["lse0"].data_ptr(),
+            t["dout"].data_ptr(), t["dqkv"].data_ptr(), bs.data_ptr(), b, n, h, stream),
+            "backward")
+
+    fwd_ms, bwd_ms = back_to_back_ms(fwd, k=20), back_to_back_ms(bwd, k=20)
+    both_ms = back_to_back_ms(lambda i: (fwd(i), bwd(i)), k=20)
+    nobias_ms = back_to_back_ms(plain_both, k=20)
+    qkv, table, dout = sets[0]["qkv"], sets[0]["table"], sets[0]["dout"]
+    x = qkv.detach().requires_grad_(True)
+    tt = table.detach().requires_grad_(True)
+    call_ms = time_ms(lambda: torch.autograd.grad(attention.vit_attention(x, tt, grid), (x, tt),
+                                                  dout), reps=10)
+    idx = attention.relative_position_index(grid).cuda()
+    q, k, v = (u.detach().requires_grad_(True) for u in qkv.permute(2, 0, 3, 1, 4))
+    mask = table[:, idx][None].detach().requires_grad_(True)
+    import torch.nn.functional as F
+
+    y = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    dy = dout.transpose(1, 2)
+    lib_fwd = back_to_back_ms(lambda _: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                              k=10)
+    lib_bwd = back_to_back_ms(
+        lambda _: torch.autograd.grad(y, (q, k, v, mask), dy, retain_graph=True), k=10)
+    lib_call_ms = time_ms(lambda: torch.autograd.grad(sdpa_with_bias(x, tt, grid), (x, tt),
+                                                      dout), reps=5)
+    del y, mask
+    plain_ms = time_ms(lambda: torch.autograd.grad(attention.attention_plain(x, tt, grid),
+                                                   (x, tt), dout), reps=3)
+    info = {}
+    for i, name in zip((5, 6, 7), ATTENTION_BIAS_NAMES):
+        regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        attention._raise(lib.vit_attention_kernel_info(i, ctypes.byref(regs), ctypes.byref(local),
+                                                       ctypes.byref(smem)), "info")
+        info[name] = {"registers": regs.value, "local_bytes": local.value,
+                      "shared_bytes": smem.value + (i == 7) * 8 * ((r + 3) // 4 * 4)}
+    flops = 4.0 * b * h * n * n * 64
+    bound_ms = 3 * 3 * flops / PEAK_TF32_FLOPS * 1e3
+    result = {
+        "name": "vit_attention_bias",
+        "route": "cuda",
+        "source": "robust_cvd_tpu_torch/csrc/vit_attention.cu",
+        "replaces": "the bias gather and F.scaled_dot_product_attention with a float32 mask, "
+                    "models/beit.py::Attention",
+        "max_abs_err": err,
+        "ms": both_ms,
+        "forward_ms": fwd_ms,
+        "backward_ms": bwd_ms,
+        "no_bias_ms": nobias_ms,
+        "bias_over_no_bias": both_ms / nobias_ms,
+        "call_ms": call_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations (3xTF32)",
+        "library_ms": lib_fwd + lib_bwd,
+        "library_forward_ms": lib_fwd,
+        "library_backward_ms": lib_bwd,
+        "library_call_ms": lib_call_ms,
+        "share_of_bound": bound_ms / both_ms,
+        "ptxas": info,
+    }
+    print(f"vit_attention bias ({b}, {n}, 3, {h}, 64), grid {grid}, table {r}: forward "
+          f"{fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms, both {both_ms:.4f} ms back to back "
+          f"({both_ms / nobias_ms:.3f}x the {nobias_ms:.4f} ms without a bias; "
+          f"{result['share_of_bound']:.3f} of the 3xTF32 bound {bound_ms:.4f} ms), one call "
+          f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms; library SDPA with a float32 mask "
+          f"forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms back to back, with the gather "
+          f"one call {lib_call_ms:.4f} ms; kernels {info}")
+    result["within_budget"] = both_ms <= BIAS_BUDGET * nobias_ms
+    if not result["within_budget"]:
+        print(f"vit_attention bias: {both_ms / nobias_ms:.3f}x the path without a bias, over "
+              f"its {BIAS_BUDGET}x budget")
+    if both_ms >= lib_fwd + lib_bwd:
+        raise AssertionError("the bias path is not faster than SDPA with a float32 mask")
+    del sets, fs, bs, x, tt, q, k, v
     torch.cuda.empty_cache()
     return result
 
@@ -3108,6 +3344,7 @@ def main() -> int:
     adam_entries = {e["name"]: e for e in adam_phase(n_params, args.seed)}
     t0 = time.perf_counter()
     attention_k = attention_phase(args.seed)
+    attention_bias_k = attention_bias_phase(args.seed)
     print(f"stage attention_phase_s {time.perf_counter() - t0:.3f}")
     solver_phase(args.seed)
     sharded_solve_check()
@@ -3180,7 +3417,8 @@ def main() -> int:
         adam_entries[name]["launches"] = count
         adam_entries[name]["launches_by_path"] = {"fine_tune_epoch": count}
     print(f"total_s {time.perf_counter() - t_start:.3f}")
-    print(json.dumps({"kernels": [corner_k] + list(adam_entries.values()) + [attention_k]}))
+    print(json.dumps({"kernels": [corner_k] + list(adam_entries.values())
+                      + [attention_k, attention_bias_k]}))
     print(smi)
     print(json.dumps({
         "ok": True,

@@ -58,6 +58,53 @@
 //   atomics: it recomputes q k^T and dO v^T (7 products of a tile where
 //   atomics need 5), and it is bitwise deterministic.
 //
+// Relative-position bias (BEiT, models/beit.py): softmax(q k^T / 8 + B) v
+// with B[i, j] = T[idx(i, j)], T a per-head table of R = (2 Wh - 1)
+// (2 Ww - 1) + 3 entries (H, R) and idx timm's relative position index on
+// the Wh x Ww token grid. The *_bias kernels are the three main kernels
+// with the bias gathered in, and the backward also writes dT, the table's
+// gradient: dT[r] = sum over frames and (i, j) with idx(i, j) = r of dS.
+// - The index in closed form. For a patch token n at (y, x) the wrapper
+//   passes c_n = y (2 Ww - 1) + x (pos, -1 for the class token, padded with
+//   0 past the kernels' 128-row tiles); then idx(i, j) = K0 + c_i - c_j with
+//   K0 = (Wh - 1)(2 Ww - 1) + Ww - 1, and the class token's row, column and
+//   diagonal are R - 3, R - 2 and R - 1. A row precomputes (rk, f, rc) so
+//   that idx = c_j < 0 ? rc : rk - f c_j: one multiply-add and a select an
+//   element. No (B, H, N, N) or (H, N, N) bias is written anywhere.
+// - The table is read through the L1 (__ldg): a CTA's 128 rows and one key
+//   tile touch a few hundred entries, and the kernels' shared memory (up to
+//   203,808 B of the 232,448 a block may have) has no room for a 28 KB
+//   table beside the ring at 1,793 tokens (32 x 56 grid) in the dk/dv pass.
+// - The bias is added in base-2 units, s2 = s log2(e) / 8 + b log2(e), so
+//   the online softmax, the saved log-sum-exp and the backward's
+//   recomputed P all see the same biased scores.
+// - dT is accumulated in the dq pass, which already visits every (i, j)
+//   of its 128 query rows, without shared-memory atomics (add_dt): each
+//   consumer warpgroup stages its 64 x 32 tile of dS in shared memory, and
+//   thread tau sums the diagonal row - key = tau - 31 in runs of one index
+//   into the warpgroup's float32 copy of the head's table (only one
+//   diagonal can hold an index within a tile, so no two threads write one
+//   entry); at the end the CTA adds the two copies' non-zero entries into
+//   dT in device memory with float atomics, summing frames and query
+//   blocks. dq, dk and dv stay bitwise deterministic; dT's float32 sums are
+//   not (the device atomics' order varies), within float32 rounding. The
+//   dq pass with a bias keeps 2 ring stages instead of 4 to leave room for
+//   the two copies of tables of up to kMaxTable entries (a 36 x 64 grid).
+// - Tried (BEiT's cell shape, (4, 1793, 16), 32 x 56 grid; the backward
+//   without a bias 2.46 ms): one shared-memory float atomic an element of
+//   dS (a compare-and-swap loop on sm_90, lanes of a warp colliding 4 ways)
+//   5.64 ms; the 16 elements of a thread pre-summed in pairs and issued in
+//   an order rotated so that a warp's lanes never collide 4.58 ms (the
+//   prefetched bias spilled); each lane's diagonal run of a warp's tile,
+//   1 to 3 atomics a lane and tile, 4.20-4.26 ms; the diagonals of the
+//   warpgroup's tile without atomics, a run written where a lane's index
+//   changes, 4.31 ms (the walk ~0.4 ms, its divergent writes ~0.9), the
+//   runs summed branch-free 4.45 ms, a run a pass of an outer loop (the
+//   lanes write together after the inner loop: kept) 4.10 ms; the bias
+//   gathers alone, without dT, 3.05 ms; the diagonals walked by two idle
+//   warps of the producer warpgroup instead, behind named barriers, 5.07
+//   ms (one warp a consumer warpgroup cannot keep pace).
+//
 // No kernel allocates or synchronises: the wrapper (ops/attention.py)
 // passes outputs and scratch (torch.empty) and PyTorch's current stream,
 // so a CUDA graph captures the calls unchanged. Plain C interface, bound
@@ -107,6 +154,20 @@ constexpr int kDqSmem = kDqStages * kDqStageBytes + 1024;
 constexpr int kDkvSmem = kDkvRawBytes + kDkvStages * kDkvStageBytes + 1024;
 static_assert(kDkvRawBytes % 1024 == 0, "stages must start on 1 KiB");
 static_assert(kDkvSmem <= 232448 && kFwdSmem <= 232448 && kDqSmem <= 232448, "shared memory");
+// dq pass with a bias: 3 stages, then the head's dT accumulator
+constexpr int kDqBiasStages = 2;
+constexpr int kDqBiasRingSmem = kDqBiasStages * kDqStageBytes + 1024;
+constexpr int kDqBiasSmemMax = 232448 - 1024;  // 1 KiB left for the static barriers
+// A consumer warpgroup's stage of a dS tile: 64 rows of 32 at an odd pitch
+// (a thread walking a diagonal reads a column of banks), twice (the tiles
+// alternate); then the warpgroup's rows' rk.
+constexpr int kDtPitch = 33;
+constexpr int kDtStage = 64 * kDtPitch;  // floats
+constexpr int kDtBytes = kConsumers * (2 * kDtStage * 4 + 64 * 4);
+// two copies of the table (one a warpgroup) beside the ring and the stages
+constexpr int kMaxTable = (kDqBiasSmemMax - kDqBiasRingSmem - kDtBytes) / 8;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kPosTile = kRowsPerCta;  // pos is padded to a multiple of this
 
 // ---------------------------------------------------------------- PTX helpers
 
@@ -327,6 +388,37 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// ------------------------------------------------------- relative positions
+
+// The bias of one call: the tables (H, R), the tokens' grid offsets `pos`
+// (see the note) and K0. Null `table` in the kernels without a bias.
+struct RelBias {
+  const float* table;
+  const int* pos;
+  float* dtable;  // (H, R), the backward's dT, zeroed by the caller
+  int R, K0, ww;  // ww: the grid's width
+};
+
+// A query row's (rk, f, rc): its index is c_j < 0 ? rc : rk - f c_j.
+struct RelRow {
+  int rk, f, rc;
+};
+
+__device__ __forceinline__ RelRow rel_row(const RelBias& rb, int i) {
+  const int c = __ldg(rb.pos + i);
+  const bool cls = c < 0;
+  return {cls ? rb.R - 3 : rb.K0 + c, cls ? 0 : 1, cls ? rb.R - 1 : rb.R - 2};
+}
+
+__device__ __forceinline__ int rel_index(const RelRow& r, int cj) {
+  return cj < 0 ? r.rc : r.rk - r.f * cj;
+}
+
+// Threads 0-255, the consumer warpgroups (the producer's have returned).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(128 * kConsumers) : "memory");
+}
+
 // ------------------------------------------------------------------ images
 
 // Row n and first K value k0 of 16-byte chunk `chunk` of an image of `rows`
@@ -490,10 +582,12 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int s
 }
 
 // Forward. Grid (ceil(N / 128), B H); 2 consumer warpgroups of 64 query
-// rows and a producer warpgroup.
-__global__ void __launch_bounds__(kThreads, 1) flash_attention_fwd(
-    const float* __restrict__ qkv, const uint8_t* __restrict__ img, float* __restrict__ out,
-    float* __restrict__ lse, int N, int H, int T, int lse_stride) {
+// rows and a producer warpgroup. kBias: rb's bias added to the scores.
+template <bool kBias>
+__device__ __forceinline__ void fwd_body(const float* __restrict__ qkv,
+                                         const uint8_t* __restrict__ img,
+                                         float* __restrict__ out, float* __restrict__ lse, int N,
+                                         int H, int T, int lse_stride, const RelBias& rb) {
   extern __shared__ uint8_t dyn[];
   uint8_t* ring = align_1k(dyn);
   __shared__ __align__(8) uint64_t full[kFwdStages], empty[kFwdStages];
@@ -521,6 +615,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_fwd(
               q);
     split_frags(q, qh, ql);
   }
+  // with a bias the scores are scaled to base 2 as they are biased
+  constexpr float sm = kBias ? 1.f : kScale;
+  RelRow r0, r1;
+  const float* tb = nullptr;
+  if constexpr (kBias) {
+    r0 = rel_row(rb, row0);
+    r1 = rel_row(rb, row1);
+    tb = rb.table + static_cast<size_t>(h) * rb.R;
+  }
   float o[32];
   zero(o);
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
@@ -535,6 +638,19 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_fwd(
     wg_wait0();
     fence_frags(qh, ql);
     fence_regs(sc);
+    if constexpr (kBias) {
+      const int* pj = rb.pos + j * kFwdTile + 2 * t;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int cj = __ldg(pj + 8 * jj + e);
+          sc[4 * jj + e] =
+              fmaf(sc[4 * jj + e], kScale, __ldg(tb + rel_index(r0, cj)) * kLog2e);
+          sc[4 * jj + 2 + e] =
+              fmaf(sc[4 * jj + 2 + e], kScale, __ldg(tb + rel_index(r1, cj)) * kLog2e);
+        }
+    }
     if ((j + 1) * kFwdTile > N) {
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
@@ -548,7 +664,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_fwd(
       x0 = fmaxf(x0, fmaxf(sc[4 * jj], sc[4 * jj + 1]));
       x1 = fmaxf(x1, fmaxf(sc[4 * jj + 2], sc[4 * jj + 3]));
     }
-    const float n0 = fmaxf(m0, quad_max(x0) * kScale), n1 = fmaxf(m1, quad_max(x1) * kScale);
+    const float n0 = fmaxf(m0, quad_max(x0) * sm), n1 = fmaxf(m1, quad_max(x1) * sm);
     const float a0 = exp2f(m0 - n0), a1 = exp2f(m1 - n1);
     m0 = n0;
     m1 = n1;
@@ -558,8 +674,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_fwd(
     for (int jj = 0; jj < 8; ++jj) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        sc[4 * jj + e] = exp2f(fmaf(sc[4 * jj + e], kScale, -m0));
-        sc[4 * jj + 2 + e] = exp2f(fmaf(sc[4 * jj + 2 + e], kScale, -m1));
+        sc[4 * jj + e] = exp2f(fmaf(sc[4 * jj + e], sm, -m0));
+        sc[4 * jj + 2 + e] = exp2f(fmaf(sc[4 * jj + 2 + e], sm, -m1));
         l0 += sc[4 * jj + e];
         l1 += sc[4 * jj + 2 + e];
       }
@@ -604,27 +720,131 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_fwd(
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_fwd(
+    const float* __restrict__ qkv, const uint8_t* __restrict__ img, float* __restrict__ out,
+    float* __restrict__ lse, int N, int H, int T, int lse_stride) {
+  fwd_body<false>(qkv, img, out, lse, N, H, T, lse_stride, RelBias{});
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_fwd_bias(
+    const float* __restrict__ qkv, const uint8_t* __restrict__ img, float* __restrict__ out,
+    float* __restrict__ lse, int N, int H, int T, int lse_stride, RelBias rb) {
+  fwd_body<true>(qkv, img, out, lse, N, H, T, lse_stride, rb);
+}
+
+// dT without atomics. A consumer warpgroup's dS of a key tile (64 query
+// rows x 32 keys) goes to its stage (stage_dt, before the tile's last
+// product); after the product, thread tau of the warpgroup walks the
+// diagonal d = tau - 31 (row - key = d, 95 diagonals) and adds it into the
+// warpgroup's copy of the table (add_dt). Two elements of a tile share an
+// index only if they share the token offset i - j, so only if they lie on
+// one diagonal: no two threads of the warpgroup write one entry in a tile,
+// and the read-add-write needs no atomic (the tiles are a barrier apart;
+// the two warpgroups, which may be on different tiles, keep two copies).
+// Along a diagonal the index stays the same while the row and the key step
+// alike (both +1, or both across a grid row, +Ww); where one crosses a
+// grid row and the other does not, the run ends and the index moves by
+// +-(Ww - 1). A run is summed in an inner loop and written after it, so
+// the warp's lanes write together. The class token's row and column (each
+// the first element of its diagonals) go to their three shared entries
+// with atomics.
+__device__ __forceinline__ void stage_dt(float* st, const float (&sc)[16], int lane, int wrow) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        st[(wrow + g + 8 * a) * kDtPitch + 8 * jj + 2 * t + e] = sc[4 * jj + 2 * a + e];
+}
+
+// `rows_rk`: the warpgroup's rows' K0 + c_i; `row_wrap` bit r: row r + 1
+// crosses a grid row; `col_wrap` bit c: key c + 1 does; `pos_tile`: the
+// tile's keys' offsets; `cls_row` / `cls_col`: local row 0 / key 0 is the
+// class token.
+__device__ __forceinline__ void add_dt(float* dt, const float* st, const int* rows_rk,
+                                       uint64_t row_wrap, uint32_t col_wrap,
+                                       const int* pos_tile, bool cls_row, bool cls_col, int tau,
+                                       const RelBias& rb) {
+  if (tau >= 95) return;
+  const int d = tau - 31;
+  int c0 = d < 0 ? -d : 0;
+  const int c_end = d > 32 ? 63 - d : 31;  // inclusive
+  if ((cls_row && c0 + d == 0) || (cls_col && c0 == 0)) {
+    const float v = st[(c0 + d) * kDtPitch + c0];
+    const int i = cls_row && c0 + d == 0 ? (cls_col && c0 == 0 ? rb.R - 1 : rb.R - 3) : rb.R - 2;
+    if (v != 0.f) atomicAdd(dt + i, v);
+    ++c0;
+  }
+  if (c0 > c_end) return;
+  // bit c: the index changes after the diagonal's element in key column c
+  const uint32_t brk =
+      static_cast<uint32_t>(d >= 0 ? row_wrap >> d : row_wrap << -d) ^ col_wrap;
+  int idx = rows_rk[c0 + d] - __ldg(pos_tile + c0);
+  for (int c = c0; c <= c_end;) {
+    // the run ends at the first break in [c, c_end), or at c_end
+    const uint32_t here = brk >> c;
+    const int e = here & ((1u << (c_end - c)) - 1u) ? c + __ffs(here) - 1 : c_end;
+    const float* q = st + (c + d) * kDtPitch + c;
+    float acc = 0.f;
+#pragma unroll 4
+    for (int k = 0; k <= e - c; ++k) acc += q[k * (kDtPitch + 1)];
+    if (acc != 0.f) dt[idx] += acc;
+    if (e < c_end)
+      idx += (static_cast<int>((row_wrap >> (e + d)) & 1) - static_cast<int>((col_wrap >> e) & 1)) *
+             (rb.ww - 1);
+    c = e + 1;
+  }
+}
+
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+}
+
 // Backward, dq. Grid (ceil(N / 128), B H); 128 query rows a CTA (Q and dO
-// raw in registers, dq accumulated there), key tiles of 32.
-__global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dq(
-    const float* __restrict__ qkv, const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ dvec, const uint8_t* __restrict__ img, float* __restrict__ dqkv,
-    int N, int H, int T, int lse_stride) {
+// raw in registers, dq accumulated there), key tiles of 32. kBias: the
+// scores biased, and dS added into the head's dT (see the note).
+template <bool kBias>
+__device__ __forceinline__ void dq_body(const float* __restrict__ qkv,
+                                        const float* __restrict__ dout,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ dvec,
+                                        const uint8_t* __restrict__ img,
+                                        float* __restrict__ dqkv, int N, int H, int T,
+                                        int lse_stride, const RelBias& rb) {
+  constexpr int kStages = kBias ? kDqBiasStages : kDqStages;
   extern __shared__ uint8_t dyn[];
   uint8_t* ring = align_1k(dyn);
-  __shared__ __align__(8) uint64_t full[kDqStages], empty[kDqStages];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  init_ring(full, empty, kDqStages);
+  init_ring(full, empty, kStages);
   __syncthreads();
   if (warp >= 4 * kConsumers) {
     regs_dec<kProducerRegs>();
     if (warp == 4 * kConsumers && lane == 0)
       produce(img + static_cast<size_t>(bh) * T * kDqStageBytes, T, kDqStageBytes, kDqStageBytes,
-              ring, kDqStageBytes, kDqStages, full, empty);
+              ring, kDqStageBytes, kStages, full, empty);
     return;
   }
   regs_inc<kConsumerRegs>();
+  // with a bias, after the ring: a copy of the table a warpgroup, then each
+  // warpgroup's two stages and its rows' rk
+  const int wg = warp >> 2, tau = threadIdx.x & 127, rp = (rb.R + 3) & ~3;
+  float* sdt = reinterpret_cast<float*>(ring + kStages * kDqStageBytes);
+  float* dt = sdt + wg * rp;
+  float* stg = sdt + 2 * rp + wg * 2 * kDtStage;
+  int* rows_rk = reinterpret_cast<int*>(sdt + 2 * rp + 4 * kDtStage) + wg * 64;
+  uint64_t row_wrap = 0;
+  if constexpr (kBias) {
+    for (int i = threadIdx.x; i < 2 * rp; i += 128 * kConsumers) sdt[i] = 0.f;
+    const int first = blockIdx.x * kRowsPerCta + wg * 64;
+    if (tau < 64) rows_rk[tau] = rb.K0 + __ldg(rb.pos + first + tau);
+    for (int r = 0; r < 63; ++r)
+      if (__ldg(rb.pos + first + r + 1) - __ldg(rb.pos + first + r) != 1) row_wrap |= 1ull << r;
+    consumers_sync();
+  }
   const int g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.x * kRowsPerCta + (warp >> 2) * 64 + (warp & 3) * 16 + g;
   const int row1 = row0 + 8;
@@ -640,11 +860,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dq(
   const float* vb = dvec + static_cast<size_t>(bh) * T * kBwdTile;
   const float L0 = row0 < N ? lb[row0] : 0.f, L1 = row1 < N ? lb[row1] : 0.f;
   const float D0 = row0 < N ? vb[row0] : 0.f, D1 = row1 < N ? vb[row1] : 0.f;
+  RelRow r0, r1;
+  const float* tb = nullptr;
+  if constexpr (kBias) {
+    r0 = rel_row(rb, row0);
+    r1 = rel_row(rb, row1);
+    tb = rb.table + static_cast<size_t>(h) * rb.R;
+  }
   float dq[32];
   zero(dq);
   for (int j = 0; j < T; ++j) {
-    const int s = j % kDqStages;
-    mbar_wait(&full[s], (j / kDqStages) & 1);
+    const int s = j % kStages;
+    mbar_wait(&full[s], (j / kStages) & 1);
     const uint8_t* st = ring + s * kDqStageBytes;
     float sc[16], dp[16];
     {
@@ -672,12 +899,24 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dq(
     for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const bool ok = j * kBwdTile + 8 * jj + 2 * t + e < N;
-        const float p0 = ok ? exp2f(fmaf(sc[4 * jj + e], kScale, -L0)) : 0.f;
-        const float p1 = ok ? exp2f(fmaf(sc[4 * jj + 2 + e], kScale, -L1)) : 0.f;
-        sc[4 * jj + e] = p0 * (dp[4 * jj + e] - D0);
-        sc[4 * jj + 2 + e] = p1 * (dp[4 * jj + 2 + e] - D1);
+        const int col = j * kBwdTile + 8 * jj + 2 * t + e;
+        const bool ok = col < N;
+        if constexpr (kBias) {
+          const int cj = __ldg(rb.pos + col);
+          const float b0 = __ldg(tb + rel_index(r0, cj)), b1 = __ldg(tb + rel_index(r1, cj));
+          const float p0 = ok ? exp2f(fmaf(sc[4 * jj + e], kScale, fmaf(b0, kLog2e, -L0))) : 0.f;
+          const float p1 =
+              ok ? exp2f(fmaf(sc[4 * jj + 2 + e], kScale, fmaf(b1, kLog2e, -L1))) : 0.f;
+          sc[4 * jj + e] = p0 * (dp[4 * jj + e] - D0);
+          sc[4 * jj + 2 + e] = p1 * (dp[4 * jj + 2 + e] - D1);
+        } else {
+          const float p0 = ok ? exp2f(fmaf(sc[4 * jj + e], kScale, -L0)) : 0.f;
+          const float p1 = ok ? exp2f(fmaf(sc[4 * jj + 2 + e], kScale, -L1)) : 0.f;
+          sc[4 * jj + e] = p0 * (dp[4 * jj + e] - D0);
+          sc[4 * jj + 2 + e] = p1 * (dp[4 * jj + 2 + e] - D1);
+        }
       }
+    if constexpr (kBias) stage_dt(stg + (j & 1) * kDtStage, sc, lane, (warp & 3) * 16);
     uint32_t hi[4][4], lo[4][4];
     acc_frags<4>(sc, hi, lo);
     float tile[32];
@@ -689,6 +928,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dq(
     fence_regs(tile);
     if (lane == 0) mbar_arrive(&empty[s]);
     add(dq, tile);
+    if constexpr (kBias) {
+      const int* pt = rb.pos + j * kBwdTile;
+      const uint32_t col_wrap = __ballot_sync(0xffffffffu, __ldg(pt + lane + 1) - __ldg(pt + lane) != 1);
+      wg_sync(wg);
+      add_dt(dt, stg + (j & 1) * kDtStage, rows_rk, row_wrap, col_wrap, pt,
+             blockIdx.x == 0 && wg == 0, j == 0, tau, rb);
+    }
   }
   float* gb = dqkv + static_cast<size_t>(b) * N * stride + h * kD + 2 * t;
 #pragma unroll
@@ -700,13 +946,38 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dq(
       *reinterpret_cast<float2*>(gb + row1 * stride + 8 * jj) =
           make_float2(dq[4 * jj + 2] * 0.125f, dq[4 * jj + 3] * 0.125f);
   }
+  if constexpr (kBias) {
+    consumers_sync();
+    float* out_dt = rb.dtable + static_cast<size_t>(h) * rb.R;
+    for (int i = threadIdx.x; i < rb.R; i += 128 * kConsumers) {
+      const float v = sdt[i] + sdt[rp + i];
+      if (v != 0.f) atomicAdd(out_dt + i, v);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dq(
+    const float* __restrict__ qkv, const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ dvec, const uint8_t* __restrict__ img, float* __restrict__ dqkv,
+    int N, int H, int T, int lse_stride) {
+  dq_body<false>(qkv, dout, lse, dvec, img, dqkv, N, H, T, lse_stride, RelBias{});
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dq_bias(
+    const float* __restrict__ qkv, const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ dvec, const uint8_t* __restrict__ img, float* __restrict__ dqkv,
+    int N, int H, int T, int lse_stride, RelBias rb) {
+  dq_body<true>(qkv, dout, lse, dvec, img, dqkv, N, H, T, lse_stride, rb);
 }
 
 // Backward, dk and dv. Grid (ceil(N / 128), B H); 128 key rows a CTA (raw K
 // and V in shared memory, dK and dV in registers), query tiles of 32.
-__global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dkdv(
-    const float* __restrict__ qkv, const uint8_t* __restrict__ img, float* __restrict__ dqkv,
-    int N, int H, int T) {
+// kBias: the scores biased.
+template <bool kBias>
+__device__ __forceinline__ void dkdv_body(const float* __restrict__ qkv,
+                                          const uint8_t* __restrict__ img,
+                                          float* __restrict__ dqkv, int N, int H, int T,
+                                          const RelBias& rb) {
   extern __shared__ uint8_t dyn[];
   uint8_t* base = align_1k(dyn);
   float* raw = reinterpret_cast<float*>(base);  // K rows, then V rows, pitch kRawPitch
@@ -739,11 +1010,30 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dkdv(
   const int lr0 = (warp >> 2) * 64 + (warp & 3) * 16 + g;  // local rows lr0, lr0 + 8
   const float* rk0 = raw + lr0 * kRawPitch;
   const float* rv0 = raw + (kRowsPerCta + lr0) * kRawPitch;
+  int c0 = 0, c1 = 0;  // the key rows' grid offsets
+  const float* tb = nullptr;
+  if constexpr (kBias) {
+    c0 = __ldg(rb.pos + first + lr0);
+    c1 = __ldg(rb.pos + first + lr0 + 8);
+    tb = rb.table + static_cast<size_t>(h) * rb.R;
+  }
   float dk[32], dv[32];
   zero(dk);
   zero(dv);
   for (int j = 0; j < T; ++j) {
     const int s = j % kDkvStages;
+    // the tile's bias, gathered before the products it does not depend on
+    float bias[16];
+    if constexpr (kBias) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const RelRow q = rel_row(rb, j * kBwdTile + 8 * jj + 2 * t + e);
+          bias[4 * jj + e] = __ldg(tb + rel_index(q, c0));
+          bias[4 * jj + 2 + e] = __ldg(tb + rel_index(q, c1));
+        }
+    }
     mbar_wait(&full[s], (j / kDkvStages) & 1);
     const uint8_t* st = ring + s * kDkvStageBytes;
     float sc[16], dp[16];
@@ -779,8 +1069,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dkdv(
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * jj + 2 * t + e;
         const float L = ls[c], Dc = ls[kBwdTile + c];
-        const float p0 = exp2f(fmaf(sc[4 * jj + e], kScale, -L));
-        const float p1 = exp2f(fmaf(sc[4 * jj + 2 + e], kScale, -L));
+        float p0, p1;
+        if constexpr (kBias) {
+          p0 = exp2f(fmaf(sc[4 * jj + e], kScale, fmaf(bias[4 * jj + e], kLog2e, -L)));
+          p1 = exp2f(fmaf(sc[4 * jj + 2 + e], kScale, fmaf(bias[4 * jj + 2 + e], kLog2e, -L)));
+        } else {
+          p0 = exp2f(fmaf(sc[4 * jj + e], kScale, -L));
+          p1 = exp2f(fmaf(sc[4 * jj + 2 + e], kScale, -L));
+        }
         sc[4 * jj + e] = p0;
         sc[4 * jj + 2 + e] = p1;
         dp[4 * jj + e] = p0 * (dp[4 * jj + e] - Dc);
@@ -823,6 +1119,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dkdv(
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dkdv(
+    const float* __restrict__ qkv, const uint8_t* __restrict__ img, float* __restrict__ dqkv,
+    int N, int H, int T) {
+  dkdv_body<false>(qkv, img, dqkv, N, H, T, RelBias{});
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dkdv_bias(
+    const float* __restrict__ qkv, const uint8_t* __restrict__ img, float* __restrict__ dqkv,
+    int N, int H, int T, RelBias rb) {
+  dkdv_body<true>(qkv, img, dqkv, N, H, T, rb);
+}
+
 int tiles(int n, int tile) { return (n + tile - 1) / tile; }
 
 int set_smem() {
@@ -840,6 +1148,24 @@ int set_smem() {
   return err;
 }
 
+int set_smem_bias() {
+  static int err = -1;
+  if (err < 0) {
+    err = static_cast<int>(cudaFuncSetAttribute(
+        flash_attention_fwd_bias, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem));
+    if (!err)
+      err = static_cast<int>(cudaFuncSetAttribute(flash_attention_bwd_dq_bias,
+                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                  kDqBiasSmemMax));
+    if (!err)
+      err = static_cast<int>(cudaFuncSetAttribute(
+          flash_attention_bwd_dkdv_bias, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem));
+  }
+  return err;
+}
+
+int dq_bias_smem(int R) { return kDqBiasRingSmem + 8 * ((R + 3) & ~3) + kDtBytes; }
+
 }  // namespace
 
 // Bytes of scratch a call needs (backward != 0: the backward's), and the
@@ -853,50 +1179,126 @@ extern "C" long long vit_attention_scratch_bytes(int B, int N, int H, int backwa
 
 extern "C" int vit_attention_lse_stride(int N) { return tiles(N, kFwdTile) * kFwdTile; }
 
-extern "C" int vit_attention_forward(const float* qkv, float* out, float* lse, void* scratch,
-                                     int B, int N, int H, cudaStream_t stream) {
-  if (int err = set_smem()) return err;
+// The largest table (entries a head) the bias kernels take, and the length
+// pos must have for N tokens.
+extern "C" int vit_attention_max_table() { return kMaxTable; }
+
+extern "C" int vit_attention_pos_length(int N) { return tiles(N, kPosTile) * kPosTile + 32; }
+
+namespace {
+
+// The forward; with a bias where rb.table is not null.
+int forward(const float* qkv, float* out, float* lse, void* scratch, int B, int N, int H,
+            const RelBias& rb, cudaStream_t stream) {
+  const bool bias = rb.table != nullptr;
+  if (int err = bias ? set_smem_bias() : set_smem()) return err;
   const int t = tiles(N, kFwdTile), bh = B * H;
   float* img = static_cast<float*>(scratch);
   flash_attention_fwd_prep<<<dim3(t, bh), kPrepThreads, 0, stream>>>(qkv, img, N, H, t);
   if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  flash_attention_fwd<<<dim3(tiles(N, kRowsPerCta), bh), kThreads, kFwdSmem, stream>>>(
-      qkv, reinterpret_cast<const uint8_t*>(img), out, lse, N, H, t, t * kFwdTile);
+  const dim3 grid(tiles(N, kRowsPerCta), bh);
+  const uint8_t* im = reinterpret_cast<const uint8_t*>(img);
+  if (bias)
+    flash_attention_fwd_bias<<<grid, kThreads, kFwdSmem, stream>>>(qkv, im, out, lse, N, H, t,
+                                                                  t * kFwdTile, rb);
+  else
+    flash_attention_fwd<<<grid, kThreads, kFwdSmem, stream>>>(qkv, im, out, lse, N, H, t,
+                                                             t * kFwdTile);
   return static_cast<int>(cudaGetLastError());
+}
+
+int backward(const float* qkv, const float* out, const float* lse, const float* dout,
+             float* dqkv, void* scratch, int B, int N, int H, const RelBias& rb,
+             cudaStream_t stream) {
+  const bool bias = rb.table != nullptr;
+  if (int err = bias ? set_smem_bias() : set_smem()) return err;
+  const int t = tiles(N, kBwdTile), bh = B * H;
+  uint8_t* kv_img = static_cast<uint8_t*>(scratch);
+  uint8_t* q_img = kv_img + static_cast<size_t>(bh) * t * kDqStageBytes;
+  float* dvec = reinterpret_cast<float*>(q_img + static_cast<size_t>(bh) * t * kDkvTileBytes);
+  const int lse_stride = tiles(N, kFwdTile) * kFwdTile;
+  flash_attention_bwd_prep<<<dim3(t, bh, 2), kPrepThreads, 0, stream>>>(
+      qkv, out, lse, dout, reinterpret_cast<float*>(kv_img), reinterpret_cast<float*>(q_img), dvec,
+      N, H, t, lse_stride);
+  if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+  const dim3 grid(tiles(N, kRowsPerCta), bh);
+  if (bias)
+    flash_attention_bwd_dkdv_bias<<<grid, kThreads, kDkvSmem, stream>>>(qkv, q_img, dqkv, N, H,
+                                                                       t, rb);
+  else
+    flash_attention_bwd_dkdv<<<grid, kThreads, kDkvSmem, stream>>>(qkv, q_img, dqkv, N, H, t);
+  if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
+  if (bias)
+    flash_attention_bwd_dq_bias<<<grid, kThreads, dq_bias_smem(rb.R), stream>>>(
+        qkv, dout, lse, dvec, kv_img, dqkv, N, H, t, lse_stride, rb);
+  else
+    flash_attention_bwd_dq<<<grid, kThreads, kDqSmem, stream>>>(qkv, dout, lse, dvec, kv_img,
+                                                               dqkv, N, H, t, lse_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int vit_attention_forward(const float* qkv, float* out, float* lse, void* scratch,
+                                     int B, int N, int H, cudaStream_t stream) {
+  return forward(qkv, out, lse, scratch, B, N, H, RelBias{}, stream);
 }
 
 extern "C" int vit_attention_backward(const float* qkv, const float* out, const float* lse,
                                       const float* dout, float* dqkv, void* scratch, int B,
                                       int N, int H, cudaStream_t stream) {
-  if (int err = set_smem()) return err;
-  const int t = tiles(N, kBwdTile), bh = B * H;
-  uint8_t* kv_img = static_cast<uint8_t*>(scratch);
-  uint8_t* q_img = kv_img + static_cast<size_t>(bh) * t * kDqStageBytes;
-  float* dvec = reinterpret_cast<float*>(q_img + static_cast<size_t>(bh) * t * kDkvTileBytes);
-  const int lse_stride = vit_attention_lse_stride(N);
-  flash_attention_bwd_prep<<<dim3(t, bh, 2), kPrepThreads, 0, stream>>>(
-      qkv, out, lse, dout, reinterpret_cast<float*>(kv_img), reinterpret_cast<float*>(q_img), dvec,
-      N, H, t, lse_stride);
-  if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  flash_attention_bwd_dkdv<<<dim3(tiles(N, kRowsPerCta), bh), kThreads, kDkvSmem, stream>>>(
-      qkv, q_img, dqkv, N, H, t);
-  if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  flash_attention_bwd_dq<<<dim3(tiles(N, kRowsPerCta), bh), kThreads, kDqSmem, stream>>>(
-      qkv, dout, lse, dvec, kv_img, dqkv, N, H, t, lse_stride);
-  return static_cast<int>(cudaGetLastError());
+  return backward(qkv, out, lse, dout, dqkv, scratch, B, N, H, RelBias{}, stream);
+}
+
+// With the relative-position bias of a wh x ww grid: table (H, R) float32
+// with R = (2 wh - 1)(2 ww - 1) + 3 <= vit_attention_max_table(), pos
+// (vit_attention_pos_length(N) int32, see the note); the backward adds the
+// table's gradient into dtable (H, R), which the caller zeroes.
+namespace {
+
+// The bias of a wh x ww grid (N = 1 + wh ww), or an invalid R.
+RelBias grid_bias(const float* table, const int* pos, float* dtable, int N, int wh, int ww) {
+  const int R = (2 * wh - 1) * (2 * ww - 1) + 3;
+  const bool ok = wh >= 0 && ww >= 0 && N == 1 + wh * ww && R <= kMaxTable;
+  return {table, pos, dtable, ok ? R : -1, (wh - 1) * (2 * ww - 1) + ww - 1, ww};
+}
+
+}  // namespace
+
+extern "C" int vit_attention_forward_bias(const float* qkv, const float* table, const int* pos,
+                                          float* out, float* lse, void* scratch, int B, int N,
+                                          int H, int wh, int ww, cudaStream_t stream) {
+  const RelBias rb = grid_bias(table, pos, nullptr, N, wh, ww);
+  if (rb.R < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return forward(qkv, out, lse, scratch, B, N, H, rb, stream);
+}
+
+extern "C" int vit_attention_backward_bias(const float* qkv, const float* table, const int* pos,
+                                           const float* out, const float* lse, const float* dout,
+                                           float* dqkv, float* dtable, void* scratch, int B,
+                                           int N, int H, int wh, int ww, cudaStream_t stream) {
+  const RelBias rb = grid_bias(table, pos, dtable, N, wh, ww);
+  if (rb.R < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return backward(qkv, out, lse, dout, dqkv, scratch, B, N, H, rb, stream);
 }
 
 // Registers a thread, local (spill) bytes a thread and shared bytes a block
 // (static plus dynamic) of kernel `which`: 0 fwd_prep, 1 fwd, 2 bwd_prep,
-// 3 bwd_dkdv, 4 bwd_dq.
+// 3 bwd_dkdv, 4 bwd_dq, 5 fwd_bias, 6 bwd_dkdv_bias, 7 bwd_dq_bias (its
+// ring and the warpgroups' stages; a table of R entries adds two copies,
+// 8 R bytes rounded up to 32).
 extern "C" int vit_attention_kernel_info(int which, int* regs, int* local, int* smem) {
   const void* fns[] = {reinterpret_cast<const void*>(flash_attention_fwd_prep),
                        reinterpret_cast<const void*>(flash_attention_fwd),
                        reinterpret_cast<const void*>(flash_attention_bwd_prep),
                        reinterpret_cast<const void*>(flash_attention_bwd_dkdv),
-                       reinterpret_cast<const void*>(flash_attention_bwd_dq)};
-  const int dyn[] = {0, kFwdSmem, 0, kDkvSmem, kDqSmem};
-  if (which < 0 || which > 4) return static_cast<int>(cudaErrorInvalidValue);
+                       reinterpret_cast<const void*>(flash_attention_bwd_dq),
+                       reinterpret_cast<const void*>(flash_attention_fwd_bias),
+                       reinterpret_cast<const void*>(flash_attention_bwd_dkdv_bias),
+                       reinterpret_cast<const void*>(flash_attention_bwd_dq_bias)};
+  const int dyn[] = {0, kFwdSmem, 0, kDkvSmem, kDqSmem, kFwdSmem, kDkvSmem,
+                     kDqBiasRingSmem + kDtBytes};
+  if (which < 0 || which > 7) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes a;
   if (cudaError_t err = cudaFuncGetAttributes(&a, fns[which])) return static_cast<int>(err);
   *regs = a.numRegs;

@@ -35,6 +35,9 @@ The net has no BatchNorm, so the fine-tune's batch-statistics contexts
 leave it alone. Its adapter runs the net's float32 matrix products in TF32
 where TF32 is allowed (`matmul_tf32`); the plain references in float32.
 
+The reassembly and the decoder take any encoder of the same width (the
+`encoder` argument of DPTDepthNet): models/beit.py puts BEiT-L under them.
+
 Spans (utils/spans.py): `dpt.embed`, `dpt.encoder` (attrs `tokens` a
 frame and `frames`), `dpt.reassemble` and `dpt.decoder` (fusion and head).
 """
@@ -135,6 +138,20 @@ class VisionTransformer(nn.Module):
         t = torch.cat([self.cls_token.expand(b, -1, -1), t], 1)
         return t + self.resized_pos_embed(h // self.patch, w // self.patch)
 
+    def hooked(self, x: torch.Tensor, hooks: Sequence[int]) -> list:
+        """The tokens after each hooked block, (B, N, dim) each; the blocks
+        after the last hook are not run. The encoder contract of
+        DPTDepthNet (models/beit.py::BeitEncoder fills it in too)."""
+        with span("dpt.embed"):
+            t = self.embed(x)
+        with span("dpt.encoder", tokens=t.shape[1], frames=x.shape[0]):
+            out = []
+            for i, blk in enumerate(self.blocks[: hooks[-1] + 1]):
+                t = blk(t)
+                if i in hooks:
+                    out.append(t)
+        return out
+
 
 class ProjectReadout(nn.Module):
     """dpt/vit.py::ProjectReadout: each patch token concatenated with the
@@ -174,19 +191,24 @@ class DPTDepthNet(nn.Module):
     """DPT: (B, 3, H, W) normalised RGB -> (B, H, W) disparity. H and W must
     be multiples of the patch. The defaults are DPT-Large's published
     widths; smaller ones give the same structure for tests. `normalize` is
-    the input normalisation its weights were trained with."""
+    the input normalisation its weights were trained with.
+
+    `encoder` (at `pretrained.model`) is DPT-Large's VisionTransformer of
+    these widths, or another module of width `hidden` with a `patch` and
+    `hooked(x, hooks)`, the tokens after each hooked block (BEiT,
+    models/beit.py); the reassembly and the decoder are the same."""
 
     normalize = staticmethod(normalize_images)
 
     def __init__(self, hidden: int = 1024, heads: int = 16, blocks: int = 24, mlp: int = 4096,
                  patch: int = 16, pos_grid: int = 24, hooks: Sequence[int] = (5, 11, 17, 23),
                  widths: Sequence[int] = (256, 512, 1024, 1024), features: int = 256,
-                 classes: int = 1000):
+                 classes: int = 1000, encoder: nn.Module | None = None):
         super().__init__()
         self.hooks = tuple(hooks)
         self.pretrained = nn.Module()
-        self.pretrained.model = VisionTransformer(hidden, heads, blocks, mlp, patch, pos_grid,
-                                                  classes)
+        self.pretrained.model = encoder if encoder is not None else VisionTransformer(
+            hidden, heads, blocks, mlp, patch, pos_grid, classes)
         for level, width in enumerate(widths, 1):
             setattr(self.pretrained, f"act_postprocess{level}", _reassemble(hidden, width, level))
         self.scratch = nn.Module()
@@ -204,14 +226,7 @@ class DPTDepthNet(nn.Module):
         if h % vit.patch or w % vit.patch:
             raise ValueError(f"DPT needs sides that are multiples of {vit.patch}, got {h}x{w}")
         gh, gw = h // vit.patch, w // vit.patch
-        with span("dpt.embed"):
-            t = vit.embed(x)
-        with span("dpt.encoder", tokens=t.shape[1], frames=b):
-            hooked = []
-            for i, blk in enumerate(vit.blocks[: self.hooks[-1] + 1]):
-                t = blk(t)
-                if i in self.hooks:
-                    hooked.append(t)
+        hooked = vit.hooked(x, self.hooks)
         with span("dpt.reassemble"):
             layers = []
             for level, t in enumerate(hooked, 1):

@@ -2,7 +2,8 @@
 
 After robust_cvd_tpu/models/registry.py. The reference registers only
 `midas2`, here the port's MidasV2Adapter; the port adds `dpt_large`
-(DPTLargeAdapter, MiDaS v3.0). Both fill in models/depth_model.py's contract.
+(DPTLargeAdapter, MiDaS v3.0) and `dpt_beit_large_512` (DPTBeitLargeAdapter,
+MiDaS v3.1's BEiT-L/16-512). All fill in models/depth_model.py's contract.
 """
 
 from __future__ import annotations
@@ -23,11 +24,13 @@ def register(name: str):
 def get_depth_model(name: str):
     if name not in _REGISTRY:
         # lazy-register builtins
+        from .beit import DPTBeitLargeAdapter
         from .dpt import DPTLargeAdapter
         from .midas import MidasV2Adapter
 
         _REGISTRY.setdefault("midas2", MidasV2Adapter)
         _REGISTRY.setdefault("dpt_large", DPTLargeAdapter)
+        _REGISTRY.setdefault("dpt_beit_large_512", DPTBeitLargeAdapter)
     try:
         return _REGISTRY[name]
     except KeyError:

@@ -15,6 +15,11 @@ On the CPU (the plain version, which the CUDA kernels are held to):
   empty tensor) without a card; a CPU input takes the plain version and
   launches nothing; a device that is neither raises.
 
+With BEiT's relative-position bias, on the CPU: the bias checker refuses
+a table of the wrong shape, type or device and a token count that is not
+the grid's, and a CPU call with a table takes the plain version (its
+gradient reaching the table) and launches nothing.
+
 On the card (marked `cuda`, skipped without one; this file imports no JAX):
 - The kernels against the plain version in float64, the output and each of
   dq, dk, dv, at the DPT cell's shape (4, 1009, 3, 16, 64) and at N in
@@ -25,6 +30,16 @@ On the card (marked `cuda`, skipped without one; this file imports no JAX):
   within the kernel's error against float64.
 - One DPT train step on the card (24 blocks, heads of 64) advances
   `vit_attention.launches` and `.backward_launches` by 24 each.
+- The bias kernels against the plain version in float64 at N 1, 65, 577
+  and BEiT's cell shape (4, 1793, 16) on its 32x56 grid: out, dq, dk, dv
+  and the table's gradient each, at its largest over three inputs, no
+  worse than (at its largest over the same inputs) the bias gathered into a
+  float32 mask through F.scaled_dot_product_attention (at N = 1, where the
+  exact dq, dk and dT are 0 and both sides are the rounding of dP - D,
+  within twice its error: chip_smoke.bias_error_limit); a graph replay of
+  the bias path equals its eager run; one BEiT train step (24 blocks)
+  advances `.bias_launches` and `.bias_backward_launches` by 24 each and
+  leaves the counters without a bias alone.
 """
 
 import numpy as np
@@ -130,6 +145,32 @@ def test_a_cpu_input_takes_the_plain_version():
             attention.vit_attention.backward_launches) == before
 
 
+@pytest.mark.parametrize("grid, table_shape, dtype, why", [
+    ((2, 3), (2, 18), torch.float32, "tokens not the grid's"),
+    ((3, 3), (2, 27), torch.float32, "table of another grid"),
+    ((3, 3), (3, 28), torch.float32, "table of another head count"),
+    ((3, 3), (2, 28), torch.float64, "float64 table"),
+])
+def test_the_bias_checker_refuses(grid, table_shape, dtype, why):
+    qkv = torch.zeros((1, 10, 3, 2, 64))
+    with pytest.raises(ValueError):
+        attention.check_bias_input(qkv, torch.zeros(table_shape, dtype=dtype), grid)
+
+
+def test_a_cpu_input_with_a_table_takes_the_plain_version():
+    qkv = _qkv(2, 13, 2, 64, seed=2)
+    table = torch.randn((2, 5 * 7 + 3), generator=torch.Generator().manual_seed(0))
+    attention.check_bias_input(qkv, table, (3, 4))
+    before = (attention.vit_attention.bias_launches, attention.vit_attention.bias_backward_launches)
+    t = table.clone().requires_grad_(True)
+    out = attention.vit_attention(qkv, t, (3, 4))
+    out.square().sum().backward()
+    assert torch.equal(out, attention.attention_plain(qkv, table, (3, 4)))
+    assert t.grad is not None and t.grad.abs().max() > 0
+    assert (attention.vit_attention.bias_launches,
+            attention.vit_attention.bias_backward_launches) == before
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
@@ -188,3 +229,66 @@ def test_a_dpt_train_step_runs_the_kernels_in_every_block():
     assert bool(ok) and torch.isfinite(loss)
     assert attention.vit_attention.launches == before[0] + 24
     assert attention.vit_attention.backward_launches == before[1] + 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, grid, h", chip_smoke.ATTENTION_BIAS_CHECKS)
+def test_bias_kernels_match_float64_no_worse_than_sdpa(b, grid, h):
+    """The largest error of each part over three inputs: on one input the
+    two float32 errors can fall either way by a few percent (1.081e-6 and
+    1.070e-6 for dk at the cell's shape on one)."""
+    _card()
+    runs = [chip_smoke.attention_bias_errors(b, grid, h, seed=seed) for seed in (5, 6, 7)]
+    errs = {side: {k: max(r[side][k] for r in runs) for k in runs[0][side]}
+            for side in ("kernel", "sdpa")}
+    print(b, grid, h, errs)
+    n = 1 + grid[0] * grid[1]
+    for k, v in errs["kernel"].items():
+        assert v <= chip_smoke.bias_error_limit(errs, k, n), (k, v, errs["sdpa"][k])
+
+
+@pytest.mark.cuda
+def test_a_graph_replay_of_the_bias_path_equals_the_eager_run():
+    _card()
+    grid = (24, 24)
+    qkv, table, dout = chip_smoke._bias_inputs(2, grid, 4, seed=3)
+
+    def step():
+        out, lse = attention.forward_bias_kernel(qkv, table, grid)
+        return (out,) + attention.backward_bias_kernel(qkv, table, grid, out, lse, dout)
+
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    tol = max(chip_smoke.attention_bias_errors(2, grid, 4, seed=3)["kernel"].values())
+    for a, b in zip(static, eager):
+        assert (a - b).abs().max() <= tol * b.abs().max()
+
+
+@pytest.mark.cuda
+def test_a_beit_train_step_runs_the_bias_kernels_in_every_block():
+    _card()
+    import test_torch_pkg_dpt as tdpt
+
+    from robust_cvd_tpu_torch.models import beit
+
+    net = beit.BeitDepthNet(hidden=128, heads=2, blocks=24, mlp=256, patch=16, table_grid=4,
+                            hooks=(5, 11, 17, 23), widths=(16, 32, 64, 64), features=32,
+                            classes=10)
+    tuner, _ = tdpt._tuner(dtype=torch.float32, adapter=beit.DPTBeitLargeAdapter(net),
+                           device="cuda")
+    va = attention.vit_attention
+    before = (va.launches, va.backward_launches, va.bias_launches, va.bias_backward_launches)
+    loss, _, ok = tuner.train_step(torch.tensor([0, 2], device="cuda"))
+    torch.cuda.synchronize()
+    assert bool(ok) and torch.isfinite(loss)
+    assert (va.launches, va.backward_launches, va.bias_launches,
+            va.bias_backward_launches) == (before[0], before[1], before[2] + 24, before[3] + 24)

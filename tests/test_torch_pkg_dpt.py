@@ -435,15 +435,48 @@ def test_the_cli_runs_dpt_large(tmp_path, monkeypatch):
     run), the CLI's DPT narrowed to the small widths: the registry's
     adapter takes the initial depth and the fine-tune's train steps, and
     the result tree carries the model's name."""
+    from robust_cvd_tpu_torch.io.store import VideoStore
+    from robust_cvd_tpu_torch.main import main
+
+    n = 6
+    base = cli_clip(tmp_path, monkeypatch, n)
+    store = VideoStore.open(base)
+    torch.save(_nets()[0].state_dict(),
+               os.path.join(base, "models", dpt.DPTLargeAdapter.checkpoint))
+    monkeypatch.setattr(dpt, "DPTDepthNet", functools.partial(dpt.DPTDepthNet, **SMALL))
+
+    built = []
+    orig = dpt.DPTLargeAdapter.from_checkpoint.__func__
+    monkeypatch.setattr(dpt.DPTLargeAdapter, "from_checkpoint",
+                        classmethod(lambda cls, p: built.append(p) or orig(cls, p)))
+    proc = main(["--path", base, "--model_type", "dpt_large", "--size", str(W),
+                 "--num_epochs", "1", "--save_tensorboard", "false",
+                 "--opt.num_steps", "2", "--opt.ctf_long", "3", "--opt.ctf_short", "2",
+                 "--opt.lm_max_outer", "4", "--opt.lm_cg_iters", "8"], device="cpu")
+    assert built == [os.path.join(base, "models", dpt.DPTLargeAdapter.checkpoint)]
+    assert isinstance(proc.tuner.adapter, dpt.DPTLargeAdapter)
+    seen = []
+    _record_precision(proc.tuner.net, seen)
+    proc.tuner.infer_depth(batch=n)
+    assert seen == ["high"]
+    assert len(proc.tuner.history) == 1 and proc.tuner.history[0]["skipped"] == 0
+    assert os.path.basename(proc.out_dir(n)).endswith("_dpt_large")
+    depth0 = store.load_depth_stream("depth_dpt_large")
+    assert depth0.shape == (n, H, W) and np.isfinite(depth0).all() and depth0.min() > 0
+
+
+def cli_clip(tmp_path, monkeypatch, n, shift=2):
+    """An n-frame H x W clip for the CLI: panning frames, their exact flows
+    and masks on disk (so RAFT is loaded and not run) and a seeded small
+    RAFT checkpoint under models/ (the CLI's RAFT narrowed to 2 iterations).
+    Returns the clip's directory."""
     import chip_smoke
     from robust_cvd_tpu_torch.io import raw
     from robust_cvd_tpu_torch.io.frames import save_frames_txt
     from robust_cvd_tpu_torch.io.store import VideoStore, frame_name, save_png_color
-    from robust_cvd_tpu_torch.main import main
     from robust_cvd_tpu_torch.models import raft
     from robust_cvd_tpu_torch.utils.frame_sampling import sample_pairs
 
-    n, shift = 6, 2
     base = str(tmp_path / "clip")
     monkeypatch.setattr(chip_smoke, "H", H)
     monkeypatch.setattr(chip_smoke, "W", W)
@@ -466,29 +499,8 @@ def test_the_cli_runs_dpt_large(tmp_path, monkeypatch):
         entries.append((i, j, float(mask.mean())))
     store.save_flow_list(entries)
     os.makedirs(os.path.join(base, "models"))
-    torch.save(_nets()[0].state_dict(),
-               os.path.join(base, "models", dpt.DPTLargeAdapter.checkpoint))
     monkeypatch.setattr(raft, "RAFT", functools.partial(raft.RAFT, iters=2,
                                                         dtype=torch.float32))
     torch.save(raft.seeded_init_(raft.RAFT(), 0).state_dict(),
                os.path.join(base, "models", "raft-things.pth"))
-    monkeypatch.setattr(dpt, "DPTDepthNet", functools.partial(dpt.DPTDepthNet, **SMALL))
-
-    built = []
-    orig = dpt.DPTLargeAdapter.from_checkpoint.__func__
-    monkeypatch.setattr(dpt.DPTLargeAdapter, "from_checkpoint",
-                        classmethod(lambda cls, p: built.append(p) or orig(cls, p)))
-    proc = main(["--path", base, "--model_type", "dpt_large", "--size", str(W),
-                 "--num_epochs", "1", "--save_tensorboard", "false",
-                 "--opt.num_steps", "2", "--opt.ctf_long", "3", "--opt.ctf_short", "2",
-                 "--opt.lm_max_outer", "4", "--opt.lm_cg_iters", "8"], device="cpu")
-    assert built == [os.path.join(base, "models", dpt.DPTLargeAdapter.checkpoint)]
-    assert isinstance(proc.tuner.adapter, dpt.DPTLargeAdapter)
-    seen = []
-    _record_precision(proc.tuner.net, seen)
-    proc.tuner.infer_depth(batch=n)
-    assert seen == ["high"]
-    assert len(proc.tuner.history) == 1 and proc.tuner.history[0]["skipped"] == 0
-    assert os.path.basename(proc.out_dir(n)).endswith("_dpt_large")
-    depth0 = store.load_depth_stream("depth_dpt_large")
-    assert depth0.shape == (n, H, W) and np.isfinite(depth0).all() and depth0.min() > 0
+    return base
