@@ -79,31 +79,45 @@
 //   the online softmax, the saved log-sum-exp and the backward's
 //   recomputed P all see the same biased scores.
 // - dT is accumulated in the dq pass, which already visits every (i, j)
-//   of its 128 query rows, without shared-memory atomics (add_dt): each
-//   consumer warpgroup stages its 64 x 32 tile of dS in shared memory, and
-//   thread tau sums the diagonal row - key = tau - 31 in runs of one index
-//   into the warpgroup's float32 copy of the head's table (only one
-//   diagonal can hold an index within a tile, so no two threads write one
-//   entry); at the end the CTA adds the two copies' non-zero entries into
-//   dT in device memory with float atomics, summing frames and query
-//   blocks. dq, dk and dv stay bitwise deterministic; dT's float32 sums are
-//   not (the device atomics' order varies), within float32 rounding. The
-//   dq pass with a bias keeps 2 ring stages instead of 4 to leave room for
-//   the two copies of tables of up to kMaxTable entries (a 36 x 64 grid).
-// - Tried (BEiT's cell shape, (4, 1793, 16), 32 x 56 grid; the backward
-//   without a bias 2.46 ms): one shared-memory float atomic an element of
-//   dS (a compare-and-swap loop on sm_90, lanes of a warp colliding 4 ways)
-//   5.64 ms; the 16 elements of a thread pre-summed in pairs and issued in
-//   an order rotated so that a warp's lanes never collide 4.58 ms (the
-//   prefetched bias spilled); each lane's diagonal run of a warp's tile,
-//   1 to 3 atomics a lane and tile, 4.20-4.26 ms; the diagonals of the
-//   warpgroup's tile without atomics, a run written where a lane's index
-//   changes, 4.31 ms (the walk ~0.4 ms, its divergent writes ~0.9), the
-//   runs summed branch-free 4.45 ms, a run a pass of an outer loop (the
-//   lanes write together after the inner loop: kept) 4.10 ms; the bias
-//   gathers alone, without dT, 3.05 ms; the diagonals walked by two idle
-//   warps of the producer warpgroup instead, behind named barriers, 5.07
-//   ms (one warp a consumer warpgroup cannot keep pace).
+//   of its 128 query rows, off the tensor cores' path and without shared-
+//   memory atomics. Each consumer warpgroup stages its 64 x 32 tile of dS
+//   diagonal-major (row u of the stage holds the diagonals row - key = u
+//   and u - 64) and hands it to a walker, one of two otherwise idle warps
+//   of the producer warpgroup, through an mbarrier pair; two stages a
+//   warpgroup let the consumers run a tile ahead. Walker lane l owns stage
+//   rows l and l + 32, so whole diagonals, and only one diagonal can hold
+//   an index within a tile: it sums each run of one index in float32 and
+//   adds it into the warpgroup's copy of the CTA's window of the table
+//   (the indices its rows can reach, at most 3/4 (R - 3) + 128 entries:
+//   3,789 of the 6,996 at 1,793 tokens), with no two lanes on one entry. At the end the CTA adds the two copies into dT in device memory
+//   with float atomics, summing frames and query blocks. dq, dk and dv stay
+//   bitwise deterministic; dT's float32 sums are not (the device atomics'
+//   order varies), within float32 rounding. Beside the tensor cores'
+//   operand reads a shared-memory round trip costs ~400-700 cycles, so the
+//   walker puts its loads in flight together and the consumer arrives on a
+//   stage's barrier only after the tile's last product has been waited for
+//   (its release then finds the stores done). Tables of up to kMaxTable
+//   entries (12,799: a 40 x 81 grid) fit.
+// - Tried (BEiT's cell shape, (4, 1793, 16), 32 x 56 grid; the dq pass
+//   without dT 1.22 ms, with it, walked by the consumers after the tile's
+//   last product, 2.31 ms): before, one shared-memory float atomic an
+//   element of dS (a compare-and-swap loop on sm_90) 5.64 ms for the
+//   backward, pre-summed pairs 4.58, a lane's run of a warp's tile 4.20,
+//   the warpgroup's diagonals in runs, written where the index changes,
+//   4.31 (kept in the form "a run a pass", 4.10), two producer warps
+//   walking behind named barriers 5.07. Then (the dq pass alone, a call):
+//   the ring at 2, 3 and 4 stages without dT 1.22, 1.23, 1.19 ms (depth is
+//   not the lever); walker warps behind mbarriers, a lane's runs written
+//   where they end 2.80 (divergent writes, spills); run sums in place,
+//   then a run of all lanes a pass 2.09-2.12; each run added into dT in
+//   device memory with a float atomic instead of shared copies 2.60-2.88
+//   (the atomics cost more than the shared-memory round trips); the stage
+//   released after the sums, its arrive once the product is waited for,
+//   1.85; a conflict-free pitch and the class token apart 1.78; the rows'
+//   offsets for the gathers in two registers instead of six 1.75 (kept;
+//   spills 88 -> 64 bytes); the stores beside the in-flight product 1.81
+//   (spills 120 bytes); the stage's release asked early with test_wait
+//   1.92; the walkers' release folded into the ring's barrier 1.75.
 //
 // No kernel allocates or synchronises: the wrapper (ops/attention.py)
 // passes outputs and scratch (torch.empty) and PyTorch's current stream,
@@ -154,18 +168,27 @@ constexpr int kDqSmem = kDqStages * kDqStageBytes + 1024;
 constexpr int kDkvSmem = kDkvRawBytes + kDkvStages * kDkvStageBytes + 1024;
 static_assert(kDkvRawBytes % 1024 == 0, "stages must start on 1 KiB");
 static_assert(kDkvSmem <= 232448 && kFwdSmem <= 232448 && kDqSmem <= 232448, "shared memory");
-// dq pass with a bias: 3 stages, then the head's dT accumulator
+// dq pass with a bias: a 2-stage ring (4 would gain ~3%: the stages' room
+// goes to dT), each consumer warpgroup's two dS stages, the walkers' run
+// sums, then a copy a warpgroup of the CTA's window of dT
 constexpr int kDqBiasStages = 2;
 constexpr int kDqBiasRingSmem = kDqBiasStages * kDqStageBytes + 1024;
 constexpr int kDqBiasSmemMax = 232448 - 1024;  // 1 KiB left for the static barriers
-// A consumer warpgroup's stage of a dS tile: 64 rows of 32 at an odd pitch
-// (a thread walking a diagonal reads a column of banks), twice (the tiles
-// alternate); then the warpgroup's rows' rk.
-constexpr int kDtPitch = 33;
-constexpr int kDtStage = 64 * kDtPitch;  // floats
-constexpr int kDtBytes = kConsumers * (2 * kDtStage * 4 + 64 * 4);
-// two copies of the table (one a warpgroup) beside the ring and the stages
-constexpr int kMaxTable = (kDqBiasSmemMax - kDqBiasRingSmem - kDtBytes) / 8;
+// A dS stage, diagonal-major: row u = (row - key) mod 64 of the warpgroup's
+// 64 x 32 tile holds, at column c, the element of key c. At a pitch of 37
+// (5 mod 32) a consumer warp's 32 stores of one accumulator register, and
+// a walker warp's reads of key c of 32 rows, each fall on 32 banks.
+constexpr int kSkewPitch = 37;
+constexpr int kSkewStage = 64 * kSkewPitch;  // floats
+constexpr int kDtStageBytes = kConsumers * 2 * kSkewStage * 4;
+// The walkers' run sums of a tile: at most 32 a stage row, two rows a lane
+constexpr int kRunBytes = kConsumers * 2 * 32 * 32 * 4;
+// A copy holds the class token's three entries, then the window.
+constexpr int kDtClass = 3;
+constexpr int kMaxCopy = (kDqBiasSmemMax - kDqBiasRingSmem - kDtStageBytes - kRunBytes) / 8 & ~3;
+// A CTA's window is at most 3/4 (R - 3) + 128 entries (see the note), so
+// every table of up to kMaxTable entries fits.
+constexpr int kMaxTable = 4 * (kMaxCopy - kDtClass - 128) / 3 + 3;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kPosTile = kRowsPerCta;  // pos is padded to a multiple of this
 
@@ -397,6 +420,7 @@ struct RelBias {
   const int* pos;
   float* dtable;  // (H, R), the backward's dT, zeroed by the caller
   int R, K0, ww;  // ww: the grid's width
+  int copy;       // the dq pass's floats a copy of dT (dq_bias_copy)
 };
 
 // A query row's (rk, f, rc): its index is c_j < 0 ? rc : rk - f c_j.
@@ -414,9 +438,16 @@ __device__ __forceinline__ int rel_index(const RelRow& r, int cj) {
   return cj < 0 ? r.rc : r.rk - r.f * cj;
 }
 
-// Threads 0-255, the consumer warpgroups (the producer's have returned).
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(128 * kConsumers) : "memory");
+// The same from the row's offset c_i alone (two registers a thread's rows
+// where RelRow takes six).
+__device__ __forceinline__ int rel_index(const RelBias& rb, int ci, int cj) {
+  return cj < 0 ? (ci < 0 ? rb.R - 1 : rb.R - 2) : (ci < 0 ? rb.R - 3 : rb.K0 + ci - cj);
+}
+
+// The dq pass's consumer warpgroups (threads 0-255) and its two walker
+// warps (288-351; the producer warpgroup's others have returned).
+__device__ __forceinline__ void dt_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(128 * kConsumers + 64) : "memory");
 }
 
 // ------------------------------------------------------------------ images
@@ -732,79 +763,198 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_fwd_bias(
   fwd_body<true>(qkv, img, out, lse, N, H, T, lse_stride, rb);
 }
 
-// dT without atomics. A consumer warpgroup's dS of a key tile (64 query
-// rows x 32 keys) goes to its stage (stage_dt, before the tile's last
-// product); after the product, thread tau of the warpgroup walks the
-// diagonal d = tau - 31 (row - key = d, 95 diagonals) and adds it into the
-// warpgroup's copy of the table (add_dt). Two elements of a tile share an
-// index only if they share the token offset i - j, so only if they lie on
-// one diagonal: no two threads of the warpgroup write one entry in a tile,
-// and the read-add-write needs no atomic (the tiles are a barrier apart;
-// the two warpgroups, which may be on different tiles, keep two copies).
-// Along a diagonal the index stays the same while the row and the key step
-// alike (both +1, or both across a grid row, +Ww); where one crosses a
-// grid row and the other does not, the run ends and the index moves by
-// +-(Ww - 1). A run is summed in an inner loop and written after it, so
-// the warp's lanes write together. The class token's row and column (each
-// the first element of its diagonals) go to their three shared entries
-// with atomics.
-__device__ __forceinline__ void stage_dt(float* st, const float (&sc)[16], int lane, int wrow) {
-  const int g = lane >> 2, t = lane & 3;
+// dT (see the note). Each consumer warpgroup stages its dS tile (64 query
+// rows x 32 keys) diagonal-major before the tile's last product (stage_dt)
+// and, once that product is waited for, signals its walker, a warp of the
+// producer warpgroup, which sums the stage's runs of one index, hands the
+// stage back and adds the runs into the warpgroup's copy of the CTA's
+// window of dT (walk_dt). Stage row u holds the diagonals u (keys 0 to 63
+// - u) and u - 64 (the rest), so the walker lane that owns rows u and u +
+// 32 owns whole diagonals. Along a diagonal the index stays while the row
+// and the key step alike (both +1, or both across a grid row) and moves by
+// +-(Ww - 1) where only one crosses; the class token's row and column keep
+// that rule through the offset -1 that pos gives them (their elements are
+// staged as 0 and go to the copy's first three entries with shared-memory
+// atomics, in the first key tile and the first CTA's first warp only),
+// and padded rows and keys stage 0.
+__device__ __forceinline__ void stage_dt(float* st, float* cls, const float (&sc)[16], int g,
+                                         int t, int wrow, bool cls_row, bool cls_col) {
+  if (cls_row || cls_col) {
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = wrow + g + 8 * a, c = 8 * jj + 2 * t + e;
+          float v = sc[4 * jj + 2 * a + e];
+          const bool row = cls_row && a == 0, col = cls_col && c == 0;
+          if (row || col) {
+            atomicAdd(cls + (row ? (col ? 2 : 0) : 1), v);
+            v = 0.f;
+          }
+          st[((r - c) & 63) * kSkewPitch + c] = v;
+        }
+    return;
+  }
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
     for (int a = 0; a < 2; ++a)
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
-        st[(wrow + g + 8 * a) * kDtPitch + 8 * jj + 2 * t + e] = sc[4 * jj + 2 * a + e];
+      for (int e = 0; e < 2; ++e) {
+        const int r = wrow + g + 8 * a, c = 8 * jj + 2 * t + e;
+        st[((r - c) & 63) * kSkewPitch + c] = sc[4 * jj + 2 * a + e];
+      }
 }
 
-// `rows_rk`: the warpgroup's rows' K0 + c_i; `row_wrap` bit r: row r + 1
-// crosses a grid row; `col_wrap` bit c: key c + 1 does; `pos_tile`: the
-// tile's keys' offsets; `cls_row` / `cls_col`: local row 0 / key 0 is the
-// class token.
-__device__ __forceinline__ void add_dt(float* dt, const float* st, const int* rows_rk,
-                                       uint64_t row_wrap, uint32_t col_wrap,
-                                       const int* pos_tile, bool cls_row, bool cls_col, int tau,
-                                       const RelBias& rb) {
-  if (tau >= 95) return;
-  const int d = tau - 31;
-  int c0 = d < 0 ? -d : 0;
-  const int c_end = d > 32 ? 63 - d : 31;  // inclusive
-  if ((cls_row && c0 + d == 0) || (cls_col && c0 == 0)) {
-    const float v = st[(c0 + d) * kDtPitch + c0];
-    const int i = cls_row && c0 + d == 0 ? (cls_col && c0 == 0 ? rb.R - 1 : rb.R - 3) : rb.R - 2;
-    if (v != 0.f) atomicAdd(dt + i, v);
-    ++c0;
+// A walker lane's two stage rows, in key order, side by side (their loads
+// in flight together: beside the tensor cores' operand reads a shared-
+// memory round trip takes hundreds of cycles): the sum of each run of one
+// index, in rank order, to `ra` / `rb` (stride 32: the warp's lanes side by
+// side). brk bit c: a run ends at key c. Returns the runs, popc(brk).
+__device__ __forceinline__ int2 sum_runs(const float* __restrict__ a, const float* __restrict__ b,
+                                         float* __restrict__ ra, float* __restrict__ rb,
+                                         uint32_t brka, uint32_t brkb) {
+  float acca = 0.f, accb = 0.f;
+  int ma = 0, mb = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const float xa[4] = {a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]};
+    const float xb[4] = {b[4 * q], b[4 * q + 1], b[4 * q + 2], b[4 * q + 3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acca += xa[e];
+      accb += xb[e];
+      if ((brka >> (4 * q + e)) & 1u) {
+        ra[32 * ma++] = acca;
+        acca = 0.f;
+      }
+      if ((brkb >> (4 * q + e)) & 1u) {
+        rb[32 * mb++] = accb;
+        accb = 0.f;
+      }
+    }
   }
-  if (c0 > c_end) return;
-  // bit c: the index changes after the diagonal's element in key column c
-  const uint32_t brk =
-      static_cast<uint32_t>(d >= 0 ? row_wrap >> d : row_wrap << -d) ^ col_wrap;
-  int idx = rows_rk[c0 + d] - __ldg(pos_tile + c0);
-  for (int c = c0; c <= c_end;) {
-    // the run ends at the first break in [c, c_end), or at c_end
-    const uint32_t here = brk >> c;
-    const int e = here & ((1u << (c_end - c)) - 1u) ? c + __ffs(here) - 1 : c_end;
-    const float* q = st + (c + d) * kDtPitch + c;
-    float acc = 0.f;
-#pragma unroll 4
-    for (int k = 0; k <= e - c; ++k) acc += q[k * (kDtPitch + 1)];
-    if (acc != 0.f) dt[idx] += acc;
-    if (e < c_end)
-      idx += (static_cast<int>((row_wrap >> (e + d)) & 1) - static_cast<int>((col_wrap >> e) & 1)) *
-             (rb.ww - 1);
-    c = e + 1;
+  return make_int2(ma, mb);
+}
+
+// A stage row's runs in turn: run m's index from run m - 1's. rb / cw bit
+// c: the row / key of the row's element c crosses a grid row at the next
+// element; at key sc the row's second diagonal starts, at index idx1.
+struct RunIndex {
+  uint32_t brk, rb, cw;
+  int sc, idx, idx1;
+
+  // the index of the current run; moves to the next
+  __device__ __forceinline__ int next(int step) {
+    const int i = idx;
+    const int e = __ffs(brk) - 1;
+    brk &= brk - 1;
+    idx = e == sc ? idx1
+                  : idx + step * (static_cast<int>((rb >> e) & 1u) -
+                                  static_cast<int>((cw >> e) & 1u));
+    return i;
+  }
+};
+
+// The entry, counted from 1 at index lo, of the window that run sum v of
+// index i adds into; 0 where it adds nothing (a zero sum: padded rows and
+// keys stage 0 and may take any index).
+__device__ __forceinline__ int run_slot(float v, int i, int lo, int len) {
+  return v != 0.f && static_cast<unsigned>(i - lo) < static_cast<unsigned>(len) ? i - lo + 1 : 0;
+}
+
+// The walker of consumer warpgroup w: for each key tile, once the
+// warpgroup has staged it, lane l sums the runs of stage rows l and l + 32
+// (whole diagonals, see the note) into `runs` (its column of two 32 x 32
+// blocks) and hands the stage back; then the warp's lanes add their runs
+// into the warpgroup's copy of the window (dt: the entry of index lo), two
+// runs of each row a pass: neighbouring runs of a row differ in index, and
+// the two rows' diagonals differ, so a pass's four entries do.
+__device__ __forceinline__ void walk_dt(const float* stg, float* runs, float* dt, uint64_t* full,
+                                        uint64_t* empty, int T, int w, int lane, int lo, int len,
+                                        const RelBias& rb) {
+  const int* pr = rb.pos + blockIdx.x * kRowsPerCta + 64 * w + lane;
+  const int pa = __ldg(pr), pb = __ldg(pr + 32);
+  // bit r: row r + 1 of the warpgroup's 64 crosses a grid row
+  const uint32_t wa = __ballot_sync(~0u, __ldg(pr + 1) - pa != 1);
+  const uint32_t wb = __ballot_sync(~0u, __ldg(pr + 33) - pb != 1);
+  // bit c: the row of stage row u's element c, (u + c) mod 64, crosses
+  const uint32_t rba = __funnelshift_r(wa, wb, lane), rbb = __funnelshift_r(wb, wa, lane);
+  const int rka = rb.K0 + pa, rkb = rb.K0 + pb, rk0 = __shfl_sync(~0u, rka, 0);
+  const int sc = 31 - lane;  // row l + 32's second diagonal starts at key 32 - l
+  const int step = rb.ww - 1;
+  float* ra = runs + lane;
+  float* rbuf = runs + 32 * 32 + lane;
+  float* d = dt - 1;  // run_slot's 1-based entries
+  for (int j = 0; j < T; ++j) {
+    const int s = j & 1;
+    const int pc = __ldg(rb.pos + j * kBwdTile + lane);
+    const uint32_t cw = __ballot_sync(~0u, __ldg(rb.pos + j * kBwdTile + lane + 1) - pc != 1);
+    const int p0 = __shfl_sync(~0u, pc, 0), p1 = __shfl_sync(~0u, pc, (32 - lane) & 31);
+    RunIndex a{(rba ^ cw) | 0x80000000u, rba, cw, 32, rka - p0, 0};
+    RunIndex b{(rbb ^ cw) | (1u << sc) | 0x80000000u, rbb, cw, sc, rkb - p0, rk0 - p1};
+    mbar_wait(&full[s], (j >> 1) & 1);
+    const float* st = stg + s * kSkewStage;
+    const int2 n = sum_runs(st + lane * kSkewPitch, st + (lane + 32) * kSkewPitch, ra, rbuf,
+                            a.brk, b.brk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    const int passes = __reduce_max_sync(~0u, max(n.x, n.y));
+    for (int m = 0; m < passes; m += 2) {
+      int k[4];
+      float v[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const bool row_a = r < 2;
+        const int mm = m + (r & 1);
+        const bool has = mm < (row_a ? n.x : n.y);
+        v[r] = has ? (row_a ? ra : rbuf)[32 * mm] : 0.f;
+        k[r] = has ? run_slot(v[r], row_a ? a.next(step) : b.next(step), lo, len) : 0;
+      }
+      float old[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) old[r] = k[r] ? d[k[r]] : 0.f;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (k[r]) d[k[r]] = old[r] + v[r];
+    }
+    __syncwarp();
   }
 }
 
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+// The CTA's window of dT: the indices of its patch-token rows, from lo,
+// len of them (0 without one).
+__device__ __forceinline__ int2 cta_window(const RelBias& rb, int N) {
+  const int first = max(blockIdx.x * kRowsPerCta, 1);
+  const int last = min(blockIdx.x * kRowsPerCta + kRowsPerCta - 1, N - 1);
+  if (first > last) return make_int2(0, 0);
+  const int lo = __ldg(rb.pos + first);
+  return make_int2(lo, rb.K0 + __ldg(rb.pos + last) - lo + 1);
+}
+
+// Thread i of dt_sync's 320: zeroes its share of the two copies, or adds
+// their sum into dT in device memory with float atomics.
+__device__ __forceinline__ void dt_zero(float* copies, int copy, int i) {
+  for (int k = i; k < 2 * copy; k += 128 * kConsumers + 64) copies[k] = 0.f;
+}
+
+__device__ __forceinline__ void dt_flush(const float* copies, const RelBias& rb, int h, int N,
+                                         int i) {
+  float* out = rb.dtable + static_cast<size_t>(h) * rb.R;
+  const int2 win = cta_window(rb, N);
+  const int lo = win.x, len = win.y;
+  for (int k = i; k < kDtClass + len; k += 128 * kConsumers + 64) {
+    const float v = copies[k] + copies[rb.copy + k];
+    if (v != 0.f) atomicAdd(out + (k < kDtClass ? rb.R - kDtClass + k : lo + k - kDtClass), v);
+  }
 }
 
 // Backward, dq. Grid (ceil(N / 128), B H); 128 query rows a CTA (Q and dO
 // raw in registers, dq accumulated there), key tiles of 32. kBias: the
-// scores biased, and dS added into the head's dT (see the note).
+// scores biased, and dS added into the head's dT by two walker warps (see
+// the note).
 template <bool kBias>
 __device__ __forceinline__ void dq_body(const float* __restrict__ qkv,
                                         const float* __restrict__ dout,
@@ -820,30 +970,54 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ qkv,
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   init_ring(full, empty, kStages);
+  // with a bias, after the ring: each consumer warpgroup's two dS stages,
+  // the walkers' run sums, then each warpgroup's copy of dT (the class
+  // token's entries, then the CTA's window), and the stages' barriers
+  uint64_t* dt_full = nullptr;
+  uint64_t* dt_empty = nullptr;
+  float* stg = nullptr;
+  float* copies = nullptr;
+  if constexpr (kBias) {
+    __shared__ __align__(8) uint64_t dt_bars[4 * kConsumers];
+    dt_full = dt_bars;
+    dt_empty = dt_bars + 2 * kConsumers;
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < 2 * kConsumers; ++i) {
+        mbar_init(&dt_full[i], 4);  // the warpgroup's warps
+        mbar_init(&dt_empty[i], 1);  // the walker
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    stg = reinterpret_cast<float*>(dyn + (ring - dyn) + kStages * kDqStageBytes);
+    copies = stg + 2 * kConsumers * kSkewStage + kRunBytes / 4;
+  }
   __syncthreads();
   if (warp >= 4 * kConsumers) {
     regs_dec<kProducerRegs>();
     if (warp == 4 * kConsumers && lane == 0)
       produce(img + static_cast<size_t>(bh) * T * kDqStageBytes, T, kDqStageBytes, kDqStageBytes,
               ring, kDqStageBytes, kStages, full, empty);
+    if constexpr (kBias) {
+      const int w = warp - 4 * kConsumers - 1;
+      if (w == 0 || w == 1) {
+        const int i = 128 * kConsumers + 32 * w + lane;
+        dt_zero(copies, rb.copy, i);
+        dt_sync();
+        const int2 win = cta_window(rb, N);
+        walk_dt(stg + 2 * w * kSkewStage, stg + 2 * kConsumers * kSkewStage + w * 2 * 32 * 32,
+                copies + w * rb.copy + kDtClass, dt_full + 2 * w, dt_empty + 2 * w, T, w, lane,
+                win.x, win.y, rb);
+        dt_sync();
+        dt_flush(copies, rb, h, N, i);
+      }
+    }
     return;
   }
   regs_inc<kConsumerRegs>();
-  // with a bias, after the ring: a copy of the table a warpgroup, then each
-  // warpgroup's two stages and its rows' rk
-  const int wg = warp >> 2, tau = threadIdx.x & 127, rp = (rb.R + 3) & ~3;
-  float* sdt = reinterpret_cast<float*>(ring + kStages * kDqStageBytes);
-  float* dt = sdt + wg * rp;
-  float* stg = sdt + 2 * rp + wg * 2 * kDtStage;
-  int* rows_rk = reinterpret_cast<int*>(sdt + 2 * rp + 4 * kDtStage) + wg * 64;
-  uint64_t row_wrap = 0;
+  const int wg = warp >> 2;
   if constexpr (kBias) {
-    for (int i = threadIdx.x; i < 2 * rp; i += 128 * kConsumers) sdt[i] = 0.f;
-    const int first = blockIdx.x * kRowsPerCta + wg * 64;
-    if (tau < 64) rows_rk[tau] = rb.K0 + __ldg(rb.pos + first + tau);
-    for (int r = 0; r < 63; ++r)
-      if (__ldg(rb.pos + first + r + 1) - __ldg(rb.pos + first + r) != 1) row_wrap |= 1ull << r;
-    consumers_sync();
+    dt_zero(copies, rb.copy, threadIdx.x);
+    dt_sync();
   }
   const int g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.x * kRowsPerCta + (warp >> 2) * 64 + (warp & 3) * 16 + g;
@@ -860,11 +1034,11 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ qkv,
   const float* vb = dvec + static_cast<size_t>(bh) * T * kBwdTile;
   const float L0 = row0 < N ? lb[row0] : 0.f, L1 = row1 < N ? lb[row1] : 0.f;
   const float D0 = row0 < N ? vb[row0] : 0.f, D1 = row1 < N ? vb[row1] : 0.f;
-  RelRow r0, r1;
+  int ci0 = 0, ci1 = 0;  // the rows' offsets c_i
   const float* tb = nullptr;
   if constexpr (kBias) {
-    r0 = rel_row(rb, row0);
-    r1 = rel_row(rb, row1);
+    ci0 = __ldg(rb.pos + row0);
+    ci1 = __ldg(rb.pos + row1);
     tb = rb.table + static_cast<size_t>(h) * rb.R;
   }
   float dq[32];
@@ -903,7 +1077,8 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ qkv,
         const bool ok = col < N;
         if constexpr (kBias) {
           const int cj = __ldg(rb.pos + col);
-          const float b0 = __ldg(tb + rel_index(r0, cj)), b1 = __ldg(tb + rel_index(r1, cj));
+          const float b0 = __ldg(tb + rel_index(rb, ci0, cj));
+          const float b1 = __ldg(tb + rel_index(rb, ci1, cj));
           const float p0 = ok ? exp2f(fmaf(sc[4 * jj + e], kScale, fmaf(b0, kLog2e, -L0))) : 0.f;
           const float p1 =
               ok ? exp2f(fmaf(sc[4 * jj + 2 + e], kScale, fmaf(b1, kLog2e, -L1))) : 0.f;
@@ -916,7 +1091,12 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ qkv,
           sc[4 * jj + 2 + e] = p1 * (dp[4 * jj + 2 + e] - D1);
         }
       }
-    if constexpr (kBias) stage_dt(stg + (j & 1) * kDtStage, sc, lane, (warp & 3) * 16);
+    const int sb = 2 * wg + (j & 1);  // with a bias, the tile's dS stage
+    if constexpr (kBias) {
+      if (j >= 2) mbar_wait(&dt_empty[sb], ((j >> 1) - 1) & 1);
+      stage_dt(stg + sb * kSkewStage, copies + wg * rb.copy, sc, g, t, (warp & 3) * 16,
+               row0 == 0, j == 0);
+    }
     uint32_t hi[4][4], lo[4][4];
     acc_frags<4>(sc, hi, lo);
     float tile[32];
@@ -927,14 +1107,12 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ qkv,
     fence_frags(hi, lo);
     fence_regs(tile);
     if (lane == 0) mbar_arrive(&empty[s]);
-    add(dq, tile);
     if constexpr (kBias) {
-      const int* pt = rb.pos + j * kBwdTile;
-      const uint32_t col_wrap = __ballot_sync(0xffffffffu, __ldg(pt + lane + 1) - __ldg(pt + lane) != 1);
-      wg_sync(wg);
-      add_dt(dt, stg + (j & 1) * kDtStage, rows_rk, row_wrap, col_wrap, pt,
-             blockIdx.x == 0 && wg == 0, j == 0, tau, rb);
+      // to the walker once the stores are long done (the arrive releases them)
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&dt_full[sb]);
     }
+    add(dq, tile);
   }
   float* gb = dqkv + static_cast<size_t>(b) * N * stride + h * kD + 2 * t;
 #pragma unroll
@@ -947,12 +1125,8 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ qkv,
           make_float2(dq[4 * jj + 2] * 0.125f, dq[4 * jj + 3] * 0.125f);
   }
   if constexpr (kBias) {
-    consumers_sync();
-    float* out_dt = rb.dtable + static_cast<size_t>(h) * rb.R;
-    for (int i = threadIdx.x; i < rb.R; i += 128 * kConsumers) {
-      const float v = sdt[i] + sdt[rp + i];
-      if (v != 0.f) atomicAdd(out_dt + i, v);
-    }
+    dt_sync();
+    dt_flush(copies, rb, h, N, threadIdx.x);
   }
 }
 
@@ -1164,7 +1338,24 @@ int set_smem_bias() {
   return err;
 }
 
-int dq_bias_smem(int R) { return kDqBiasRingSmem + 8 * ((R + 3) & ~3) + kDtBytes; }
+int dq_bias_smem(int copy) { return kDqBiasRingSmem + kDtStageBytes + kRunBytes + 8 * copy; }
+
+// The floats a copy of dT takes in the dq pass on a wh x ww grid (N = 1 +
+// wh ww): the class token's three entries and the largest window of a
+// CTA's rows, rounded up to 4. The window of rows first..last (its patch
+// tokens) runs from c_first to K0 + c_last, c_n = y (2 Ww - 1) + x of
+// patch n at (y, x); at most K0 + 127 + dy (Ww - 1) + 1 entries, dy <= Wh
+// - 1 the grid rows the block spans past its first: 3/4 (R - 3) + 128.
+int dq_bias_copy(int N, int wh, int ww) {
+  const auto c = [ww](int n) { return (n - 1) / ww * (2 * ww - 1) + (n - 1) % ww; };
+  const int k0 = (wh - 1) * (2 * ww - 1) + ww - 1;
+  int len = 0;
+  for (int first = 0; first < N; first += kRowsPerCta) {
+    const int f = first > 0 ? first : 1, l = first + kRowsPerCta - 1 < N ? first + kRowsPerCta - 1 : N - 1;
+    if (f <= l && k0 + c(l) - c(f) + 1 > len) len = k0 + c(l) - c(f) + 1;
+  }
+  return (kDtClass + len + 3) & ~3;
+}
 
 }  // namespace
 
@@ -1182,6 +1373,11 @@ extern "C" int vit_attention_lse_stride(int N) { return tiles(N, kFwdTile) * kFw
 // The largest table (entries a head) the bias kernels take, and the length
 // pos must have for N tokens.
 extern "C" int vit_attention_max_table() { return kMaxTable; }
+
+// The floats of each of the dq pass's two copies of dT on a wh x ww grid.
+extern "C" int vit_attention_dq_bias_copy(int wh, int ww) {
+  return dq_bias_copy(1 + wh * ww, wh, ww);
+}
 
 extern "C" int vit_attention_pos_length(int N) { return tiles(N, kPosTile) * kPosTile + 32; }
 
@@ -1229,7 +1425,7 @@ int backward(const float* qkv, const float* out, const float* lse, const float* 
     flash_attention_bwd_dkdv<<<grid, kThreads, kDkvSmem, stream>>>(qkv, q_img, dqkv, N, H, t);
   if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
   if (bias)
-    flash_attention_bwd_dq_bias<<<grid, kThreads, dq_bias_smem(rb.R), stream>>>(
+    flash_attention_bwd_dq_bias<<<grid, kThreads, dq_bias_smem(rb.copy), stream>>>(
         qkv, dout, lse, dvec, kv_img, dqkv, N, H, t, lse_stride, rb);
   else
     flash_attention_bwd_dq<<<grid, kThreads, kDqSmem, stream>>>(qkv, dout, lse, dvec, kv_img,
@@ -1260,7 +1456,9 @@ namespace {
 RelBias grid_bias(const float* table, const int* pos, float* dtable, int N, int wh, int ww) {
   const int R = (2 * wh - 1) * (2 * ww - 1) + 3;
   const bool ok = wh >= 0 && ww >= 0 && N == 1 + wh * ww && R <= kMaxTable;
-  return {table, pos, dtable, ok ? R : -1, (wh - 1) * (2 * ww - 1) + ww - 1, ww};
+  const int copy = ok ? dq_bias_copy(N, wh, ww) : 0;
+  return {table, pos, dtable, ok && copy <= kMaxCopy ? R : -1, (wh - 1) * (2 * ww - 1) + ww - 1,
+          ww, copy};
 }
 
 }  // namespace
@@ -1285,8 +1483,8 @@ extern "C" int vit_attention_backward_bias(const float* qkv, const float* table,
 // Registers a thread, local (spill) bytes a thread and shared bytes a block
 // (static plus dynamic) of kernel `which`: 0 fwd_prep, 1 fwd, 2 bwd_prep,
 // 3 bwd_dkdv, 4 bwd_dq, 5 fwd_bias, 6 bwd_dkdv_bias, 7 bwd_dq_bias (its
-// ring and the warpgroups' stages; a table of R entries adds two copies,
-// 8 R bytes rounded up to 32).
+// ring and the warpgroups' stages; a grid adds its two copies of dT, 8
+// vit_attention_dq_bias_copy bytes).
 extern "C" int vit_attention_kernel_info(int which, int* regs, int* local, int* smem) {
   const void* fns[] = {reinterpret_cast<const void*>(flash_attention_fwd_prep),
                        reinterpret_cast<const void*>(flash_attention_fwd),
@@ -1297,7 +1495,7 @@ extern "C" int vit_attention_kernel_info(int which, int* regs, int* local, int* 
                        reinterpret_cast<const void*>(flash_attention_bwd_dkdv_bias),
                        reinterpret_cast<const void*>(flash_attention_bwd_dq_bias)};
   const int dyn[] = {0, kFwdSmem, 0, kDkvSmem, kDqSmem, kFwdSmem, kDkvSmem,
-                     kDqBiasRingSmem + kDtBytes};
+                     kDqBiasRingSmem + kDtStageBytes + kRunBytes};
   if (which < 0 || which > 7) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes a;
   if (cudaError_t err = cudaFuncGetAttributes(&a, fns[which])) return static_cast<int>(err);

@@ -20,6 +20,10 @@ kernel); the kernels take the place of F.scaled_dot_product_attention's
 float32 CUTLASS kernels, with the same arithmetic class (3xTF32 products,
 float32 softmax).
 
+`dt_windows` states the dq pass's window of table indices for each block
+of 128 query rows, the part of the table its copies of the gradient hold
+(the kernels compute it apart; a card test holds the two together).
+
 `vit_attention.launches` and `vit_attention.backward_launches` count the
 kernel calls without a bias, `.bias_launches` and `.bias_backward_launches`
 those with one (each a pre-pass and the main kernels). Under a CUDA
@@ -58,6 +62,40 @@ def relative_position_index(grid) -> torch.Tensor:
     return idx
 
 
+ROWS_PER_CTA = 128  # the kernels' query rows a block
+
+
+def dt_windows(grid) -> list:
+    """The dq pass's window of table indices for each block of 128 query
+    rows on a (Wh, Ww) grid (csrc/vit_attention.cu, dq_body): (lo, hi) with
+    lo = c of the block's first patch token and hi = K0 + c of its last,
+    c = y (2 Ww - 1) + x of a patch token at (y, x), K0 = (Wh - 1)(2 Ww - 1)
+    + Ww - 1; None for a block without one (the class token alone). Every
+    index of a patch-token row and a patch-token key lies in its row's
+    block's window; the class token's three lie after every window."""
+    wh, ww = grid
+    n = 1 + wh * ww
+    k0 = (wh - 1) * (2 * ww - 1) + ww - 1
+
+    def c(token):
+        y, x = divmod(token - 1, ww)
+        return y * (2 * ww - 1) + x
+
+    out = []
+    for first in range(0, n, ROWS_PER_CTA):
+        f, last = max(first, 1), min(first + ROWS_PER_CTA - 1, n - 1)
+        out.append((c(f), k0 + c(last)) if f <= last else None)
+    return out
+
+
+def dq_bias_copy(grid) -> int:
+    """Floats of each of the dq pass's two copies of the table's gradient
+    on `grid`: the class token's three entries and the longest window,
+    rounded up to 4 (the kernels' vit_attention_dq_bias_copy)."""
+    longest = max([w[1] - w[0] + 1 for w in dt_windows(grid) if w], default=0)
+    return (3 + longest + 3) // 4 * 4
+
+
 def attention_plain(qkv: torch.Tensor, rel_table: torch.Tensor | None = None,
                     grid=None) -> torch.Tensor:
     """softmax(q k^T / sqrt(d) + B) v of each (frame, head), written out in
@@ -87,7 +125,13 @@ def check_kernel_input(qkv: torch.Tensor) -> None:
 
 @functools.cache
 def _library():
-    lib = load_cuda_library("vit_attention")
+    return bind_library(load_cuda_library("vit_attention"))
+
+
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the argument and result types of csrc/vit_attention.cu's C
+    functions on a loaded build of it (of those it has: an older build
+    lacks the newer functions)."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, args, res in (
             ("vit_attention_scratch_bytes", [i32] * 4, ctypes.c_longlong),
@@ -97,10 +141,12 @@ def _library():
             ("vit_attention_kernel_info", [i32] + [ptr] * 3, i32),
             ("vit_attention_max_table", [], i32),
             ("vit_attention_pos_length", [i32], i32),
+            ("vit_attention_dq_bias_copy", [i32, i32], i32),
             ("vit_attention_forward_bias", [ptr] * 6 + [i32] * 5 + [ptr], i32),
             ("vit_attention_backward_bias", [ptr] * 9 + [i32] * 5 + [ptr], i32)):
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = args, res
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = args, res
     return lib
 
 

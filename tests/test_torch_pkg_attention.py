@@ -18,7 +18,10 @@ On the CPU (the plain version, which the CUDA kernels are held to):
 With BEiT's relative-position bias, on the CPU: the bias checker refuses
 a table of the wrong shape, type or device and a token count that is not
 the grid's, and a CPU call with a table takes the plain version (its
-gradient reaching the table) and launches nothing.
+gradient reaching the table) and launches nothing. The dq pass's window
+of table indices a block of 128 query rows (attention.dt_windows) holds
+every index of the block's patch-token rows, at the 32x56, 8x8, 24x24 and
+7x13 grids, and at most 3/4 (R - 3) + 128 entries over grids up to 96x96.
 
 On the card (marked `cuda`, skipped without one; this file imports no JAX):
 - The kernels against the plain version in float64, the output and each of
@@ -30,8 +33,10 @@ On the card (marked `cuda`, skipped without one; this file imports no JAX):
   within the kernel's error against float64.
 - One DPT train step on the card (24 blocks, heads of 64) advances
   `vit_attention.launches` and `.backward_launches` by 24 each.
-- The bias kernels against the plain version in float64 at N 1, 65, 577
-  and BEiT's cell shape (4, 1793, 16) on its 32x56 grid: out, dq, dk, dv
+- The bias kernels against the plain version in float64 at N 1, 65, 577,
+  BEiT's cell shape (4, 1793, 16) on its 32x56 grid, a 7x13 grid (N 92: a
+  width dividing neither 32 nor 64, a ragged last key tile) and the 40x81
+  grid (the largest table the kernels take): out, dq, dk, dv
   and the table's gradient each, at its largest over three inputs, no
   worse than (at its largest over the same inputs) the bias gathered into a
   float32 mask through F.scaled_dot_product_attention (at N = 1, where the
@@ -39,7 +44,9 @@ On the card (marked `cuda`, skipped without one; this file imports no JAX):
   within twice its error: chip_smoke.bias_error_limit); a graph replay of
   the bias path equals its eager run; one BEiT train step (24 blocks)
   advances `.bias_launches` and `.bias_backward_launches` by 24 each and
-  leaves the counters without a bias alone.
+  leaves the counters without a bias alone; two backward calls give dq,
+  dk and dv bit for bit; the kernels' copy of the window is the Python
+  rule's.
 """
 
 import numpy as np
@@ -235,16 +242,44 @@ def test_a_dpt_train_step_runs_the_kernels_in_every_block():
 @pytest.mark.parametrize("b, grid, h", chip_smoke.ATTENTION_BIAS_CHECKS)
 def test_bias_kernels_match_float64_no_worse_than_sdpa(b, grid, h):
     """The largest error of each part over three inputs: on one input the
-    two float32 errors can fall either way by a few percent (1.081e-6 and
-    1.070e-6 for dk at the cell's shape on one)."""
+    two float32 errors can fall either way by a few percent
+    (chip_smoke.attention_bias_errors_max)."""
     _card()
-    runs = [chip_smoke.attention_bias_errors(b, grid, h, seed=seed) for seed in (5, 6, 7)]
-    errs = {side: {k: max(r[side][k] for r in runs) for k in runs[0][side]}
-            for side in ("kernel", "sdpa")}
+    errs = chip_smoke.attention_bias_errors_max(b, grid, h)
     print(b, grid, h, errs)
     n = 1 + grid[0] * grid[1]
     for k, v in errs["kernel"].items():
         assert v <= chip_smoke.bias_error_limit(errs, k, n), (k, v, errs["sdpa"][k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, grid, h", [chip_smoke.ATTENTION_BIAS_SHAPE, (2, (7, 13), 3)])
+def test_the_bias_backward_gives_dq_dk_dv_bit_for_bit(b, grid, h):
+    """dq, dk and dv are summed in a fixed order (only dT takes device
+    atomics): two backward calls on one input agree bit for bit."""
+    _card()
+    qkv, table, dout = chip_smoke._bias_inputs(b, grid, h, seed=4)
+    out, lse = attention.forward_bias_kernel(qkv, table, grid)
+    first = attention.backward_bias_kernel(qkv, table, grid, out, lse, dout)
+    second = attention.backward_bias_kernel(qkv, table, grid, out, lse, dout)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert (first[1] - second[1]).abs().max() <= 1e-5 * first[1].abs().max()
+
+
+@pytest.mark.cuda
+def test_the_kernels_window_is_the_plain_rule():
+    """The dq pass's copy of dT holds the longest window of
+    attention.dt_windows (the C side computes it apart); the checks' largest
+    grid is the widest of its height whose table the kernels take, past the
+    12,224 entries they took before."""
+    _card()
+    lib = attention._library()
+    for _, grid, _ in chip_smoke.ATTENTION_BIAS_CHECKS + (chip_smoke.ATTENTION_BIAS_SHAPE,):
+        assert lib.vit_attention_dq_bias_copy(*grid) == attention.dq_bias_copy(grid), grid
+    wh, ww = chip_smoke.ATTENTION_BIAS_MAX_GRID
+    top = lib.vit_attention_max_table()
+    assert 12224 < (2 * wh - 1) * (2 * ww - 1) + 3 <= top < (2 * wh - 1) * (2 * ww + 1) + 3
 
 
 @pytest.mark.cuda
@@ -292,3 +327,34 @@ def test_a_beit_train_step_runs_the_bias_kernels_in_every_block():
     assert bool(ok) and torch.isfinite(loss)
     assert (va.launches, va.backward_launches, va.bias_launches,
             va.bias_backward_launches) == (before[0], before[1], before[2] + 24, before[3] + 24)
+
+
+@pytest.mark.parametrize("grid", [(32, 56), (8, 8), (24, 24), (7, 13)])
+def test_every_index_of_a_query_block_lies_in_its_window(grid):
+    """The dq pass sums dT into a copy of each CTA's window of the table
+    (attention.dt_windows, the kernel's rule): every index of a block's
+    patch-token rows against the patch-token keys lies in it, and the
+    class token's three entries lie after it."""
+    idx = attention.relative_position_index(grid)
+    n, r = idx.shape[0], idx.max().item() + 1
+    windows = attention.dt_windows(grid)
+    assert len(windows) == -(-n // attention.ROWS_PER_CTA)
+    for k, window in enumerate(windows):
+        first = max(k * attention.ROWS_PER_CTA, 1)
+        block = idx[first:(k + 1) * attention.ROWS_PER_CTA, 1:]
+        lo, hi = window
+        assert lo == block.min().item() and block.max().item() == hi
+        assert hi < r - 3
+    assert (idx[0] >= r - 3).all() and (idx[:, 0] >= r - 3).all()
+    longest = max(hi - lo + 1 for lo, hi in windows)
+    assert attention.dq_bias_copy(grid) == (longest + 6) // 4 * 4
+
+
+def test_a_window_is_at_most_three_quarters_of_the_table():
+    """The kernels' largest table rests on a CTA's window holding at most
+    3/4 (R - 3) + 128 entries: over grids of every shape up to 96 x 96."""
+    for wh in range(1, 97, 5):
+        for ww in range(1, 97, 3):
+            r = (2 * wh - 1) * (2 * ww - 1) + 3
+            longest = max(hi - lo + 1 for lo, hi in filter(None, attention.dt_windows((wh, ww))))
+            assert longest <= 0.75 * (r - 3) + 128, (wh, ww)
