@@ -48,7 +48,18 @@ Phases, each of which raises on failure (exit code 1):
      both paths back to back at BEiT's shape (the bias path faster than
      the library call; whether it keeps within 1.3x the path without is
      printed and kept in its entry) beside the plain version and the
-     library call (attention_bias_entry).
+     library call (attention_bias_entry);
+   - the same kernels at head width 32 with Swin V2's window form
+     (window_attention_phase): at WINDOW_CHECKS and the cell's two shapes
+     (stage 2's (4, 576, 24) and stage 0's shifted (64, 576, 6) with the
+     mask) out, dq, dk, dv and dT each, at its largest over three inputs,
+     within twice the bias and mask gathered into a float32 mask through
+     F.scaled_dot_product_attention at scale 1 (window_error_limit); its
+     entry times both shapes back to back beside that library call (each
+     must be faster) and the 3xTF32 bound; then one eager
+     FineTuner.train_step of the published net through its adapter, at
+     the cell's 384x672 frames and batch of 2 pairs, runs the window
+     kernels in its 24 blocks (window_launches_check).
 3. solver: the pose solve of a small exact-reprojection problem on the card
    against the same solve on the CPU (poses within 1e-3); the same cold
    solve on the card with the exact diagonal off and 4 Hutchinson probes
@@ -898,17 +909,18 @@ def attention_bias_entry(seed: int, err: float) -> dict:
 
     def fwd(i):
         t = sets[i % 2]
-        attention._raise(lib.vit_attention_forward_bias(
-            t["qkv"].data_ptr(), t["table"].data_ptr(), pos.data_ptr(), t["out"].data_ptr(),
-            t["lse"].data_ptr(), fs.data_ptr(), b, n, h, wh, ww, stream), "forward")
+        attention._raise(lib.vit_attention_forward_biased(
+            t["qkv"].data_ptr(), t["table"].data_ptr(), pos.data_ptr(), None, t["out"].data_ptr(),
+            t["lse"].data_ptr(), fs.data_ptr(), b, n, h, 64, wh, ww, 1, 1, stream), "forward")
 
     def bwd(i):
         t = sets[i % 2]
         t["dtable"].zero_()
-        attention._raise(lib.vit_attention_backward_bias(
-            t["qkv"].data_ptr(), t["table"].data_ptr(), pos.data_ptr(), t["out"].data_ptr(),
+        attention._raise(lib.vit_attention_backward_biased(
+            t["qkv"].data_ptr(), t["table"].data_ptr(), pos.data_ptr(), None, t["out"].data_ptr(),
             t["lse"].data_ptr(), t["dout"].data_ptr(), t["dqkv"].data_ptr(),
-            t["dtable"].data_ptr(), bs.data_ptr(), b, n, h, wh, ww, stream), "backward")
+            t["dtable"].data_ptr(), bs.data_ptr(), b, n, h, 64, wh, ww, 1, 1, stream),
+            "backward")
 
     def plain_both(i):
         t = sets[i % 2]
@@ -950,8 +962,8 @@ def attention_bias_entry(seed: int, err: float) -> dict:
         attention._raise(lib.vit_attention_kernel_info(i, ctypes.byref(regs), ctypes.byref(local),
                                                        ctypes.byref(smem)), "info")
         info[name] = {"registers": regs.value, "local_bytes": local.value,
-                      "shared_bytes": smem.value + (i == 7) * 8 * lib.vit_attention_dq_bias_copy(
-                          wh, ww)}
+                      "shared_bytes": smem.value + (i == 7) * 8 * lib.vit_attention_dq_bias_copy_cls(
+                          wh, ww, 1)}
     flops = 4.0 * b * h * n * n * 64
     bound_ms = 3 * 3 * flops / PEAK_TF32_FLOPS * 1e3
     result = {
@@ -995,13 +1007,280 @@ def attention_bias_entry(seed: int, err: float) -> dict:
     return result
 
 
+# Swin V2-L/24-384's window attention at 384x384 (frames, window side,
+# heads, windows an image, shifted): stage 2's one 576-token window a frame
+# of 24 heads (18 blocks, no shift) and stage 0's shifted block, 16 windows
+# an image of 6 heads with the shift mask; the checks add a window of 3x3
+# (N 9), stage 3's 12x12 (N 144: a ragged last block) and a shifted 8x8
+# map of 4x4 windows.
+WINDOW_STAGE2 = (4, 24, 24, 1, False)
+WINDOW_STAGE0 = (64, 24, 6, 16, True)
+WINDOW_CHECKS = ((2, 3, 2, 1, False), (4, 12, 48, 1, False), (8, 4, 3, 4, True),
+                 (4, 24, 4, 1, False), (16, 24, 2, 16, True))
+WINDOW_NAMES = ("flash_attention_fwd_prep32", "flash_attention_bwd_prep32",
+                "flash_attention_fwd_window", "flash_attention_bwd_dkdv_window",
+                "flash_attention_bwd_dq_window", "flash_attention_fwd_window_mask",
+                "flash_attention_bwd_dkdv_window_mask", "flash_attention_bwd_dq_window_mask")
+WINDOW_TAU = 10.0  # timm's initial temperature, exp(log 10)
+
+
+def _window_inputs(b: int, w: int, h: int, nw: int, shifted: bool, seed: int):
+    """Inputs of Swin V2's window attention on the card: q = tau q^, k^
+    (unit rows) and v, (B, w^2, 3, H, 32); a table 16 sigmoid(2 N(0, 1))
+    (H, (2w - 1)^2); the region codes of a shifted map of nw windows an
+    image (or None); dout."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from robust_cvd_tpu_torch.models import swin2
+
+    n = w * w
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    raw = torch.randn((b, n, 3, h, 32), generator=g, device="cuda")
+    q, k, v = raw.unbind(2)
+    qkv = torch.stack([F.normalize(q, dim=-1) * WINDOW_TAU, F.normalize(k, dim=-1), v], 2)
+    table = 16 * torch.sigmoid(2 * torch.randn((h, (2 * w - 1) ** 2), generator=g,
+                                               device="cuda"))
+    region = None
+    if shifted:
+        side = w * math.isqrt(nw)
+        region = swin2.region_codes(side, w, w // 2).cuda()
+    dout = torch.randn((b, n, h, 32), generator=g, device="cuda")
+    return qkv.contiguous(), table, region, dout
+
+
+def sdpa_window(x, table, window, region):
+    """The library call the port would otherwise make: the bias gathered
+    and the mask added into a (B, H, N, N) float32 mask that requires a
+    gradient, then F.scaled_dot_product_attention at scale 1."""
+    import torch
+    import torch.nn.functional as F
+
+    from robust_cvd_tpu_torch.ops import attention
+
+    idx = attention.relative_position_index(window, cls=False).to(table.device)
+    mask = table[:, idx][None].expand(x.shape[0], -1, -1, -1)
+    if region is not None:
+        other = region[:, :, None] != region[:, None, :]
+        m = torch.where(other, attention.MASK_VALUE, 0.0)
+        mask = mask + m.repeat(x.shape[0] // region.shape[0], 1, 1)[:, None]
+    q, k, v = x.permute(2, 0, 3, 1, 4)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0).transpose(1, 2)
+
+
+def window_attention_errors(b: int, w: int, h: int, nw: int, shifted: bool, seed: int) -> dict:
+    """The window kernels' and sdpa_window's (float32) largest errors
+    against the plain version in float64 on the same input: out, dq, dk,
+    dv and dT, max|err| / max|ref|."""
+    from robust_cvd_tpu_torch.ops import attention
+
+    qkv, table, region, dout = _window_inputs(b, w, h, nw, shifted, seed)
+
+    def run(fn, x, t):
+        x = x.detach().requires_grad_(True)
+        t = t.detach().requires_grad_(True)
+        y = fn(x, t, (w, w), region)
+        y.backward(dout.to(x.dtype))
+        return y.detach().double(), x.grad.double(), t.grad.double()
+
+    def plain(x, t, window, reg):
+        return attention.attention_plain(x, t, window, reg, window=True)
+
+    ref = run(plain, qkv.double(), table.double())
+    errs = {}
+    for name, fn in (("kernel", attention.window_attention), ("sdpa", sdpa_window)):
+        y, dx, dt = run(fn, qkv, table)
+        pairs = ([("out", y, ref[0])] + [(f"d{c}", dx[:, :, i], ref[1][:, :, i])
+                                         for i, c in enumerate("qkv")] + [("dT", dt, ref[2])])
+        errs[name] = {k: float((a - r).abs().max() / r.abs().max()) for k, a, r in pairs}
+    return errs
+
+
+def window_attention_errors_max(b, w, h, nw, shifted) -> dict:
+    """window_attention_errors' largest of each part over BIAS_CHECK_SEEDS."""
+    runs = [window_attention_errors(b, w, h, nw, shifted, seed) for seed in BIAS_CHECK_SEEDS]
+    return {side: {k: max(r[side][k] for r in runs) for k in runs[0][side]}
+            for side in ("kernel", "sdpa")}
+
+
+def window_error_limit(errs: dict, part: str) -> float:
+    """The largest error of `part` the window kernels may have: twice
+    sdpa_window's (or 2^-24 where that is below it), the limit the kernels
+    without a bias are held to. Both are float32 roundings of the same
+    sums and fall either way at small windows: dv at a 3x3 window read
+    9.45e-7 against SDPA's 8.57e-7 over seeds 5-7 (NVIDIA H100 80GB HBM3)."""
+    return 2 * max(errs["sdpa"][part], 2.0 ** -24)
+
+
+def window_attention_phase(seed: int) -> dict:
+    """The window kernels against the plain version in float64 at
+    WINDOW_CHECKS and both cell shapes: out, dq, dk, dv and dT each, at its
+    largest over BIAS_CHECK_SEEDS, within window_error_limit of SDPA's
+    float32 error at its largest over the same inputs; then the entry with
+    the times."""
+    worst = 0.0
+    for b, w, h, nw, shifted in WINDOW_CHECKS + (WINDOW_STAGE2, WINDOW_STAGE0):
+        errs = window_attention_errors_max(b, w, h, nw, shifted)
+        line = ", ".join(f"{k} {v:.3e} (sdpa {errs['sdpa'][k]:.3e})"
+                         for k, v in errs["kernel"].items())
+        print(f"window_attention ({b}, {w * w}, 3, {h}, 32), window {w}, "
+              f"{'shifted ' * shifted}vs float64: {line}")
+        for k, v in errs["kernel"].items():
+            worst = max(worst, v)
+            if not v <= window_error_limit(errs, k):
+                raise AssertionError(f"window_attention {k} at ({b}, {w}, {h}, shifted "
+                                     f"{shifted}): error {v:.3e}, more than twice SDPA's "
+                                     f"{errs['sdpa'][k]:.3e}")
+    return window_attention_entry(seed, worst)
+
+
+def _window_times(shape, seed: int) -> dict:
+    """At one shape, back to back over two input sets: the kernels'
+    forward, backward and both (through the autograd Function's launchers),
+    and sdpa_window's forward and backward with the mask requiring a
+    gradient."""
+    import torch
+    import torch.nn.functional as F
+
+    from robust_cvd_tpu_torch.ops import attention
+
+    b, w, h, nw, shifted = shape
+    sets = []
+    for i in range(2):
+        qkv, table, region, dout = _window_inputs(b, w, h, nw, shifted, seed + i)
+        out, lse = attention.forward_bias_kernel(qkv, table, (w, w), region, cls=False)
+        sets.append(dict(qkv=qkv, table=table, region=region, dout=dout, out=out, lse=lse))
+
+    def fwd(i):
+        t = sets[i % 2]
+        attention.forward_bias_kernel(t["qkv"], t["table"], (w, w), t["region"], cls=False)
+
+    def bwd(i):
+        t = sets[i % 2]
+        attention.backward_bias_kernel(t["qkv"], t["table"], (w, w), t["out"], t["lse"],
+                                       t["dout"], t["region"], cls=False)
+
+    fwd_ms, bwd_ms = back_to_back_ms(fwd, k=20), back_to_back_ms(bwd, k=20)
+    both_ms = back_to_back_ms(lambda i: (fwd(i), bwd(i)), k=20)
+    t = sets[0]
+    idx = attention.relative_position_index((w, w), cls=False).cuda()
+    mask = t["table"][:, idx][None].expand(b, -1, -1, -1)
+    if t["region"] is not None:
+        other = t["region"][:, :, None] != t["region"][:, None, :]
+        mask = mask + torch.where(other, attention.MASK_VALUE, 0.0).repeat(
+            b // nw, 1, 1)[:, None]
+    mask = mask.contiguous().requires_grad_(True)
+    q, k, v = (u.detach().requires_grad_(True) for u in t["qkv"].permute(2, 0, 3, 1, 4))
+    y = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+    dy = t["dout"].transpose(1, 2)
+    lib_fwd = back_to_back_ms(
+        lambda _: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0), k=10)
+    lib_bwd = back_to_back_ms(
+        lambda _: torch.autograd.grad(y, (q, k, v, mask), dy, retain_graph=True), k=10)
+    n = w * w
+    flops = 4.0 * b * h * n * n * 32
+    bound_ms = 3 * 3 * flops / PEAK_TF32_FLOPS * 1e3
+    del sets, y, mask, q, k, v
+    torch.cuda.empty_cache()
+    return {"forward_ms": fwd_ms, "backward_ms": bwd_ms, "ms": both_ms,
+            "library_forward_ms": lib_fwd, "library_backward_ms": lib_bwd,
+            "library_ms": lib_fwd + lib_bwd, "bound_ms": bound_ms,
+            "share_of_bound": bound_ms / both_ms}
+
+
+def window_attention_entry(seed: int, err: float) -> dict:
+    """Times the window kernels at stage 2's and stage 0's shapes (budget:
+    forward and backward faster than sdpa_window's), their registers, local
+    bytes and shared memory. Raises where a shape misses the budget."""
+    import ctypes
+
+    import torch
+
+    from robust_cvd_tpu_torch.ops import attention
+
+    lib = attention._library()
+    shapes = {"stage2": _window_times(WINDOW_STAGE2, seed),
+              "stage0_shifted": _window_times(WINDOW_STAGE0, seed)}
+    info = {}
+    for i, name in enumerate(WINDOW_NAMES, 8):
+        regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        attention._raise(lib.vit_attention_kernel_info(i, ctypes.byref(regs), ctypes.byref(local),
+                                                       ctypes.byref(smem)), "info")
+        info[name] = {"registers": regs.value, "local_bytes": local.value,
+                      "shared_bytes": smem.value}
+    result = {
+        "name": "vit_attention_window",
+        "route": "cuda",
+        "source": "robust_cvd_tpu_torch/csrc/vit_attention.cu",
+        "replaces": "the bias gathered and the shift mask added into a float32 mask, then "
+                    "F.scaled_dot_product_attention at scale 1, models/swin2.py::WindowAttention",
+        "max_abs_err": err,
+        "ms": shapes["stage2"]["ms"],
+        "shapes": shapes,
+        "bound_by": "operations (3xTF32)",
+        "ptxas": info,
+    }
+    for name, r in shapes.items():
+        print(f"window_attention {name}: forward {r['forward_ms']:.4f} ms, backward "
+              f"{r['backward_ms']:.4f} ms, both {r['ms']:.4f} ms back to back "
+              f"({r['share_of_bound']:.3f} of the 3xTF32 bound {r['bound_ms']:.4f} ms); library "
+              f"SDPA with a float32 mask forward {r['library_forward_ms']:.4f} ms, backward "
+              f"{r['library_backward_ms']:.4f} ms")
+    print(f"window_attention kernels {info}")
+    for name, r in shapes.items():
+        if r["ms"] >= r["library_ms"]:
+            raise AssertionError(f"the window path at {name} is not faster than SDPA with a "
+                                 f"float32 mask")
+    return result
+
+
+def window_launches_check(seed: int) -> dict:
+    """The window kernels' launches on the main path at the cell's shapes:
+    one FineTuner.train_step (a StepGraph's first call runs eagerly) of the
+    published SwinV2-L/24-384 through DPTSwin2LargeAdapter, on a 4-frame
+    384x672 clip, batch 2 pairs (4 frames). With the six vit_attention
+    counters set to 0 just before it, `window_launches` and
+    `.window_backward_launches` read its 24 blocks each (the 2 shifted
+    blocks with the mask), the other forms 0. Returns the counts under
+    `fine_tune_step`."""
+    import torch
+
+    from robust_cvd_tpu_torch.models import swin2
+    from robust_cvd_tpu_torch.ops import attention
+
+    va = attention.vit_attention
+    names = ("launches", "backward_launches", "bias_launches", "bias_backward_launches",
+             "window_launches", "window_backward_launches")
+    with torch.device("cuda"):
+        net = swin2.Swin2DepthNet()
+    tuner = small_tuner("cuda", seed, h=384, w=672, adapter=swin2.DPTSwin2LargeAdapter(net),
+                        cudnn_tf32=True)
+    for k in names:
+        setattr(va, k, 0)
+    loss, _, ok = tuner.train_step(torch.tensor([0, 2], device="cuda"))
+    torch.cuda.synchronize()
+    got = {k: getattr(va, k) for k in names}
+    eager = tuner.step_graph.stats["eager"] if tuner.step_graph is not None else 1
+    print(f"window_attention launches over one eager Swin2 train step (batch 2 pairs, "
+          f"384x672): {got}, loss {float(loss):.4g}, finite guard {bool(ok)}")
+    if eager != 1:
+        raise AssertionError(f"the Swin2 train step was not one eager step ({eager})")
+    if [got[k] for k in names] != [0, 0, 0, 0, 24, 24]:
+        raise AssertionError(f"the window kernels ran {got}, not 24 + 24")
+    del tuner, net
+    torch.cuda.empty_cache()
+    return {"fine_tune_step": got}
+
+
 def small_tuner(device: str, seed: int, n: int = 4, h: int = 32, w: int = 64, mesh=None,
-                **ft_options):
-    """A FineTuner of the small MiDaS net on an n-frame h x w clip (seeded
-    images, depths, flows and masks; a pose state from seeded poses, a 2x3
-    depth grid and a spatial warp), convolutions without TF32, on the data
-    mesh `mesh` where one is given; `ft_options` go to its FineTuneParams
-    (the optimizer).
+                adapter=None, cudnn_tf32: bool = False, **ft_options):
+    """A FineTuner of the small MiDaS net (or of `adapter`) on an n-frame
+    h x w clip (seeded images, depths, flows and masks; a pose state from
+    seeded poses, a 2x3 depth grid and a spatial warp), convolutions with
+    TF32 only where `cudnn_tf32`, on the data mesh `mesh` where one is
+    given; `ft_options` go to its FineTuneParams (the optimizer).
 
     The net's BatchNorms ahead of a ReLU get a bias of +3. With random
     weights about a quarter of such small configurations have a ReLU input
@@ -1034,15 +1313,18 @@ def small_tuner(device: str, seed: int, n: int = 4, h: int = 32, w: int = 64, me
         depth_grid=torch.from_numpy(rng.uniform(0.8, 1.2, (n, 1, 2, 3)).astype(np.float32)),
         spatial_grid=torch.from_numpy(rng.normal(0, 0.01, (n, 1, 1, 2)).astype(np.float32)),
     )
-    net = midas.seeded_init_(midas.MidasNet(features=32, backbone_layers=(1, 1, 1, 1)), seed)
-    with torch.no_grad():
-        for name, m in net.named_modules():
-            if isinstance(m, layers.BatchNorm2d) and not name.endswith("bn3"):
-                m.bias.fill_(3.0)
+    if adapter is None:
+        net = midas.seeded_init_(midas.MidasNet(features=32, backbone_layers=(1, 1, 1, 1)),
+                                 seed)
+        with torch.no_grad():
+            for name, m in net.named_modules():
+                if isinstance(m, layers.BatchNorm2d) and not name.endswith("bn3"):
+                    m.bias.fill_(3.0)
+        adapter = midas.MidasV2Adapter(net)
     cfg = PipelineConfig(ft=FineTuneParams(save_tensorboard=False, **ft_options))
     clip = build_clip_data(images, depth, flow_list, flows, masks, 0.2, device=device)
-    tuner = FineTuner(cfg, midas.MidasV2Adapter(net), clip, None, device=device,
-                      cudnn_tf32=False, mesh=mesh)
+    tuner = FineTuner(cfg, adapter, clip, None, device=device, cudnn_tf32=cudnn_tf32,
+                      mesh=mesh)
     tuner.pose_state = pose_state_from_solver(
         SolverParams(*[t.to(device) for t in sp[:4]]), (h, w), w / h, clip.depth_orig
     )
@@ -3371,6 +3653,8 @@ def main() -> int:
     t0 = time.perf_counter()
     attention_k = attention_phase(args.seed)
     attention_bias_k = attention_bias_phase(args.seed)
+    attention_window_k = window_attention_phase(args.seed)
+    attention_window_k["launches_by_path"] = window_launches_check(args.seed)
     print(f"stage attention_phase_s {time.perf_counter() - t0:.3f}")
     solver_phase(args.seed)
     sharded_solve_check()
@@ -3444,7 +3728,7 @@ def main() -> int:
         adam_entries[name]["launches_by_path"] = {"fine_tune_epoch": count}
     print(f"total_s {time.perf_counter() - t_start:.3f}")
     print(json.dumps({"kernels": [corner_k] + list(adam_entries.values())
-                      + [attention_k, attention_bias_k]}))
+                      + [attention_k, attention_bias_k, attention_window_k]}))
     print(smi)
     print(json.dumps({
         "ok": True,

@@ -1,6 +1,7 @@
 // Flash attention of the ViT encoder (models/dpt.py::Attention), written for
 // Hopper (sm_90a): softmax(q k^T / 8) v over heads of width 64, forward and
-// backward, in float32 with 3xTF32 products.
+// backward, in float32 with 3xTF32 products; and, at head width 32, Swin
+// V2's window attention (see "Swin V2's windows" below).
 //
 // Replaces no TPU kernel: the JAX package has no DPT and no attention
 // kernel. It replaces a library call, F.scaled_dot_product_attention on
@@ -119,6 +120,37 @@
 //   (spills 120 bytes); the stage's release asked early with test_wait
 //   1.92; the walkers' release folded into the ring's barrier 1.75.
 //
+// Swin V2's windows (models/swin2.py::WindowAttention): softmax(q k^T + B +
+// M) v over heads of width 32, each "frame" of the batch one window of Wh x
+// Ww tokens (N = Wh Ww, the windows of every image in order), the scores at
+// scale 1 (the cosine attention's temperature is folded into q by the
+// caller), B the continuous position bias (a per-head table of R = (2 Wh -
+// 1)(2 Ww - 1) entries, made by ordinary torch ops) and M the shift mask.
+// The *_window and *_window_mask kernels are the bias kernels' templates
+// (fwd_body, dkdv_body, dq_body over <D, mode>) at D = 32, beside
+// pre-passes at 32 (flash_attention_*_prep32):
+// - Head width 32. A 32-float K-major row is exactly one 128-byte swizzle
+//   atom, so q k^T contracts in 4 k steps of 8 (one half of the image, the
+//   second never read) and the products with the head width as their N
+//   (p v, dS k, P^T dO, dS^T q) are m64n32k8 (16 accumulator registers),
+//   their B images D = 32 rows of K-major keys, two halves of 32 keys 4 KiB
+//   apart. The tiling is kernel 3's (128 query rows a CTA, key tiles of 64
+//   forward and 32 backward, the same rings at half the bytes); the
+//   registers freed are not spent.
+// - No class token: pos holds c_n for every token, idx = K0 + c_i - c_j
+//   (the same closed form, its class-token selects compiled out), the dq
+//   pass's window starts at the block's first row and its class entries
+//   are neither staged nor flushed.
+// - The mask: with region codes (nW, pos length) int32, window b's row b
+//   mod nW, the gathered bias takes -100 where the row's and the key's
+//   codes differ, before it is scaled to base 2 (timm adds -100 to the
+//   biased scores); dT takes dS unmasked, as the table's gradient does in
+//   the written-out version (masked entries have P ~ e^-100, dS ~ 0).
+// - dT is summed in the dq pass by the walker warps, as for BEiT: the
+//   walk's rule (an index a diagonal, runs that change where a row or a
+//   key crosses a grid row) does not depend on the grid.
+// - No zero-padding of d to 64 was tried.
+//
 // No kernel allocates or synchronises: the wrapper (ops/attention.py)
 // passes outputs and scratch (torch.empty) and PyTorch's current stream,
 // so a CUDA graph captures the calls unchanged. Plain C interface, bound
@@ -130,8 +162,6 @@
 
 namespace {
 
-constexpr int kD = 64;  // head width
-constexpr float kScale = 0.18033688011112042f;  // log2(e) / sqrt(64)
 constexpr int kConsumers = 2;  // warpgroups of 64 rows
 constexpr int kThreads = 128 * (kConsumers + 1);  // and a producer warpgroup
 // Registers a thread after setmaxnreg: the producer gives its share to the
@@ -140,40 +170,63 @@ constexpr int kConsumerRegs = 232;
 constexpr int kProducerRegs = 40;
 constexpr int kRowsPerCta = 64 * kConsumers;
 constexpr int kPrepThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Images: a tile of `rows` rows (the product's N) by 32 or 64 values along
-// the contraction (K), hi then lo.
-constexpr int kImage64 = 64 * kD * 4;  // 64 x 64 floats, 16 KiB
-constexpr int kImage32 = 32 * kD * 4;  // 32 x 64 or 64 x 32 floats, 8 KiB
-// forward: key tiles of 64: K (64 x 64) and V^T (64 x 64 keys), hi and lo
-constexpr int kFwdTile = 64;
-constexpr int kFwdStageBytes = 4 * kImage64;  // 64 KiB
+// The kernels' modes: no bias (ViT); the relative-position bias with a
+// class token (BEiT); Swin V2's windows (no class token, the scores'
+// scale 1), without and with the shift mask.
+enum Mode { kPlain, kBias, kWindow, kWindowMask };
+
+template <int kMode>
+struct Traits {
+  static constexpr bool bias = kMode != kPlain;
+  static constexpr bool cls = kMode == kBias;
+  static constexpr bool mask = kMode == kWindowMask;
+  static constexpr bool window = kMode == kWindow || kMode == kWindowMask;
+  // log2(e) times the scores' scale: 1 / sqrt(64) (ViT, BEiT), or 1 (the
+  // windows: q carries Swin V2's temperature); and that scale, dq's and
+  // dk's factor
+  static constexpr float scale2 = window ? kLog2e : 0.18033688011112042f;
+  static constexpr float grad = window ? 1.f : 0.125f;
+};
+
+constexpr int kFwdTile = 64;  // forward: key tiles of 64
 constexpr int kFwdStages = 3;
-// backward: tiles of 32 rows
-constexpr int kBwdTile = 32;
-// dq pass, key tiles: K (32 x 64), V (32 x 64), K^T (64 x 32 keys)
-constexpr int kDqStageBytes = 6 * kImage32;  // 48 KiB
+constexpr int kBwdTile = 32;  // backward: tiles of 32 rows
 constexpr int kDqStages = 4;
-// dk/dv pass, query tiles: Q, dO (32 x 64), Q^T, dO^T (64 x 32 queries),
-// then the tile's lse2 and D (32 floats each)
-constexpr int kDkvImageBytes = 8 * kImage32;  // 64 KiB
-constexpr int kDkvTileBytes = kDkvImageBytes + 2 * kBwdTile * 4;  // in device memory
-constexpr int kDkvStageBytes = kDkvImageBytes + 1024;  // in shared memory, 1 KiB aligned
 constexpr int kDkvStages = 2;
-constexpr int kRawPitch = kD + 4;  // raw K and V rows in shared memory (conflict-free fragments)
-constexpr int kDkvRawBytes = 2 * kRowsPerCta * kRawPitch * 4;
-
-constexpr int kFwdSmem = kFwdStages * kFwdStageBytes + 1024;
-constexpr int kDqSmem = kDqStages * kDqStageBytes + 1024;
-constexpr int kDkvSmem = kDkvRawBytes + kDkvStages * kDkvStageBytes + 1024;
-static_assert(kDkvRawBytes % 1024 == 0, "stages must start on 1 KiB");
-static_assert(kDkvSmem <= 232448 && kFwdSmem <= 232448 && kDqSmem <= 232448, "shared memory");
 // dq pass with a bias: a 2-stage ring (4 would gain ~3%: the stages' room
 // goes to dT), each consumer warpgroup's two dS stages, the walkers' run
 // sums, then a copy a warpgroup of the CTA's window of dT
 constexpr int kDqBiasStages = 2;
-constexpr int kDqBiasRingSmem = kDqBiasStages * kDqStageBytes + 1024;
 constexpr int kDqBiasSmemMax = 232448 - 1024;  // 1 KiB left for the static barriers
+
+// Tiles and shared memory at head width D (64 or 32). Images: a tile of
+// `rows` rows (the product's N) by 32 or 64 values along the contraction
+// (K), hi then lo.
+template <int D>
+struct Geo {
+  static_assert(D == 64 || D == 32, "head width");
+  static constexpr int kImage64 = 64 * D * 4;  // 64 x D or D x 64 floats (16 KiB at 64)
+  static constexpr int kImage32 = 32 * D * 4;  // 32 x D or D x 32 floats
+  // forward: K (64 x D) and V^T (D x 64 keys), hi and lo
+  static constexpr int kFwdStageBytes = 4 * kImage64;
+  // dq pass, key tiles: K (32 x D), V (32 x D), K^T (D x 32 keys)
+  static constexpr int kDqStageBytes = 6 * kImage32;
+  // dk/dv pass, query tiles: Q, dO (32 x D), Q^T, dO^T (D x 32 queries),
+  // then the tile's lse2 and D (32 floats each)
+  static constexpr int kDkvImageBytes = 8 * kImage32;
+  static constexpr int kDkvTileBytes = kDkvImageBytes + 2 * kBwdTile * 4;  // in device memory
+  static constexpr int kDkvStageBytes = kDkvImageBytes + 1024;  // in shared memory, 1 KiB aligned
+  static constexpr int kRawPitch = D + 4;  // raw K and V rows (conflict-free fragments)
+  static constexpr int kDkvRawBytes = 2 * kRowsPerCta * kRawPitch * 4;
+  static constexpr int kFwdSmem = kFwdStages * kFwdStageBytes + 1024;
+  static constexpr int kDqSmem = kDqStages * kDqStageBytes + 1024;
+  static constexpr int kDkvSmem = kDkvRawBytes + kDkvStages * kDkvStageBytes + 1024;
+  static constexpr int kDqBiasRingSmem = kDqBiasStages * kDqStageBytes + 1024;
+  static_assert(kDkvRawBytes % 1024 == 0, "stages must start on 1 KiB");
+  static_assert(kDkvSmem <= 232448 && kFwdSmem <= 232448 && kDqSmem <= 232448, "shared memory");
+};
 // A dS stage, diagonal-major: row u = (row - key) mod 64 of the warpgroup's
 // 64 x 32 tile holds, at column c, the element of key c. At a pitch of 37
 // (5 mod 32) a consumer warp's 32 stores of one accumulator register, and
@@ -185,12 +238,14 @@ constexpr int kDtStageBytes = kConsumers * 2 * kSkewStage * 4;
 constexpr int kRunBytes = kConsumers * 2 * 32 * 32 * 4;
 // A copy holds the class token's three entries, then the window.
 constexpr int kDtClass = 3;
-constexpr int kMaxCopy = (kDqBiasSmemMax - kDqBiasRingSmem - kDtStageBytes - kRunBytes) / 8 & ~3;
+template <int D>
+constexpr int kMaxCopy =
+    (kDqBiasSmemMax - Geo<D>::kDqBiasRingSmem - kDtStageBytes - kRunBytes) / 8 & ~3;
 // A CTA's window is at most 3/4 (R - 3) + 128 entries (see the note), so
-// every table of up to kMaxTable entries fits.
-constexpr int kMaxTable = 4 * (kMaxCopy - kDtClass - 128) / 3 + 3;
-constexpr float kLog2e = 1.4426950408889634f;
+// every table of up to kMaxTable entries fits (BEiT's, at 64).
+constexpr int kMaxTable = 4 * (kMaxCopy<64> - kDtClass - 128) / 3 + 3;
 constexpr int kPosTile = kRowsPerCta;  // pos is padded to a multiple of this
+constexpr float kMaskValue = -100.f;  // Swin's shift mask, added to the bias
 
 // ---------------------------------------------------------------- PTX helpers
 
@@ -383,13 +438,14 @@ __device__ __forceinline__ void acc_frags(const float (&acc)[NREG], uint32_t (&h
   }
 }
 
-// The A fragments (k steps of 8 over 64 columns) of a thread's two rows:
-// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of each step; a missing row
-// reads 0.
+// The A fragments (KS k steps of 8 over 8 KS columns) of a thread's two
+// rows: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of each step; a
+// missing row reads 0.
+template <int KS>
 __device__ __forceinline__ void row_frags(const float* r0, const float* r1, int t,
-                                          float (&a)[8][4]) {
+                                          float (&a)[KS][4]) {
 #pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
+  for (int ks = 0; ks < KS; ++ks) {
     a[ks][0] = r0 ? __ldg(r0 + 8 * ks + t) : 0.f;
     a[ks][1] = r1 ? __ldg(r1 + 8 * ks + t) : 0.f;
     a[ks][2] = r0 ? __ldg(r0 + 8 * ks + t + 4) : 0.f;
@@ -421,27 +477,46 @@ struct RelBias {
   float* dtable;  // (H, R), the backward's dT, zeroed by the caller
   int R, K0, ww;  // ww: the grid's width
   int copy;       // the dq pass's floats a copy of dT (dq_bias_copy)
+  // the shift mask's region codes (nW, rstride) int32 of the windows b mod
+  // nW, or null
+  const int* region;
+  int nW, rstride;
 };
 
-// A query row's (rk, f, rc): its index is c_j < 0 ? rc : rk - f c_j.
+// A query row's (rk, f, rc): its index is c_j < 0 ? rc : rk - f c_j (with
+// a class token), rk - c_j (without).
 struct RelRow {
   int rk, f, rc;
 };
 
+template <bool kCls>
 __device__ __forceinline__ RelRow rel_row(const RelBias& rb, int i) {
   const int c = __ldg(rb.pos + i);
+  if constexpr (!kCls) return {rb.K0 + c, 1, 0};
   const bool cls = c < 0;
   return {cls ? rb.R - 3 : rb.K0 + c, cls ? 0 : 1, cls ? rb.R - 1 : rb.R - 2};
 }
 
+template <bool kCls>
 __device__ __forceinline__ int rel_index(const RelRow& r, int cj) {
+  if constexpr (!kCls) return r.rk - cj;
   return cj < 0 ? r.rc : r.rk - r.f * cj;
 }
 
 // The same from the row's offset c_i alone (two registers a thread's rows
 // where RelRow takes six).
+template <bool kCls>
 __device__ __forceinline__ int rel_index(const RelBias& rb, int ci, int cj) {
+  if constexpr (!kCls) return rb.K0 + ci - cj;
   return cj < 0 ? (ci < 0 ? rb.R - 1 : rb.R - 2) : (ci < 0 ? rb.R - 3 : rb.K0 + ci - cj);
+}
+
+// The shift mask's term between two tokens' region codes.
+__device__ __forceinline__ float mask_term(int a, int b) { return a != b ? kMaskValue : 0.f; }
+
+// The region codes of the window of frame b (b mod nW), or null.
+__device__ __forceinline__ const int* region_row(const RelBias& rb, int b) {
+  return rb.region + static_cast<size_t>(b % rb.nW) * rb.rstride;
 }
 
 // The dq pass's consumer warpgroups (threads 0-255) and its two walker
@@ -478,14 +553,15 @@ __device__ __forceinline__ void store_split(float* hi, float* lo, int chunk, flo
   reinterpret_cast<uint4*>(lo)[chunk] = make_uint4(l[0], l[1], l[2], l[3]);
 }
 
-// Writes the hi and lo images (each `rows` x 64 or 64 x `rows` floats) of a
-// tile held in shared memory as src[row][d] (pitch kD + 1): `transposed`
+// Writes the hi and lo images (each `rows` x D or D x `rows` floats) of a
+// tile held in shared memory as src[row][d] (pitch D + 1): `transposed`
 // makes d the image's rows and the tile's rows (permuted) its K axis.
+template <int D>
 __device__ __forceinline__ void write_image(const float* src, int rows, bool transposed,
                                             float* hi, float* lo) {
-  constexpr int p = kD + 1;
-  const int img_rows = transposed ? kD : rows;
-  for (int c = threadIdx.x; c < rows * kD / 4; c += blockDim.x) {
+  constexpr int p = D + 1;
+  const int img_rows = transposed ? D : rows;
+  for (int c = threadIdx.x; c < rows * D / 4; c += blockDim.x) {
     int n, k0;
     image_coord(c, img_rows, n, k0);
     float4 x;
@@ -500,15 +576,16 @@ __device__ __forceinline__ void write_image(const float* src, int rows, bool tra
   }
 }
 
-// `rows` rows of 64 floats (row stride `stride`, rows from `first`, zeros at
-// and beyond n) into shared memory at pitch kD + 1.
+// `rows` rows of D floats (row stride `stride`, rows from `first`, zeros at
+// and beyond n) into shared memory at pitch D + 1.
+template <int D>
 __device__ __forceinline__ void load_tile(const float* base, size_t stride, int first, int rows,
                                           int n, float* dst) {
-  for (int i = threadIdx.x; i < rows * kD / 4; i += blockDim.x) {
-    const int r = i / (kD / 4), c = (i % (kD / 4)) * 4;
+  for (int i = threadIdx.x; i < rows * D / 4; i += blockDim.x) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (first + r < n) v = __ldg(reinterpret_cast<const float4*>(base + (first + r) * stride + c));
-    float* d = dst + r * (kD + 1) + c;
+    float* d = dst + r * (D + 1) + c;
     d[0] = v.x;
     d[1] = v.y;
     d[2] = v.z;
@@ -519,65 +596,93 @@ __device__ __forceinline__ void load_tile(const float* base, size_t stride, int 
 // ------------------------------------------------------------ pre-passes
 
 // Forward: each key tile of 64 as its stage image: K (hi, lo), V^T (hi, lo).
+template <int D>
+__device__ __forceinline__ void fwd_prep_body(const float* __restrict__ qkv,
+                                              float* __restrict__ img, int N, int H, int T) {
+  using G = Geo<D>;
+  __shared__ float sk[kFwdTile * (D + 1)], sv[kFwdTile * (D + 1)];
+  const int j = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const size_t stride = static_cast<size_t>(3) * H * D;
+  const float* kb = qkv + static_cast<size_t>(b) * N * stride + (H + h) * D;
+  load_tile<D>(kb, stride, j * kFwdTile, kFwdTile, N, sk);
+  load_tile<D>(kb + H * D, stride, j * kFwdTile, kFwdTile, N, sv);
+  __syncthreads();
+  float* out = img + (static_cast<size_t>(bh) * T + j) * (G::kFwdStageBytes / 4);
+  constexpr int f = G::kImage64 / 4;
+  write_image<D>(sk, kFwdTile, false, out, out + f);
+  write_image<D>(sv, kFwdTile, true, out + 2 * f, out + 3 * f);
+}
+
 __global__ void __launch_bounds__(kPrepThreads) flash_attention_fwd_prep(
     const float* __restrict__ qkv, float* __restrict__ img, int N, int H, int T) {
-  __shared__ float sk[kFwdTile * (kD + 1)], sv[kFwdTile * (kD + 1)];
-  const int j = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
-  const size_t stride = static_cast<size_t>(3) * H * kD;
-  const float* kb = qkv + static_cast<size_t>(b) * N * stride + (H + h) * kD;
-  load_tile(kb, stride, j * kFwdTile, kFwdTile, N, sk);
-  load_tile(kb + H * kD, stride, j * kFwdTile, kFwdTile, N, sv);
-  __syncthreads();
-  float* out = img + (static_cast<size_t>(bh) * T + j) * (kFwdStageBytes / 4);
-  constexpr int f = kImage64 / 4;
-  write_image(sk, kFwdTile, false, out, out + f);
-  write_image(sv, kFwdTile, true, out + 2 * f, out + 3 * f);
+  fwd_prep_body<64>(qkv, img, N, H, T);
+}
+
+__global__ void __launch_bounds__(kPrepThreads) flash_attention_fwd_prep32(
+    const float* __restrict__ qkv, float* __restrict__ img, int N, int H, int T) {
+  fwd_prep_body<32>(qkv, img, N, H, T);
 }
 
 // Backward: blockIdx.z 0 writes each key tile of 32 as the dq pass's stage
 // image (K, V, K^T); 1 writes each query tile of 32 as the dk/dv pass's (Q,
 // dO, Q^T, dO^T, the rows' lse2 and D = rowsum(dO o O)) and D to dvec.
-__global__ void __launch_bounds__(kPrepThreads) flash_attention_bwd_prep(
+template <int D>
+__device__ __forceinline__ void bwd_prep_body(
     const float* __restrict__ qkv, const float* __restrict__ out, const float* __restrict__ lse,
     const float* __restrict__ dout, float* __restrict__ kv_img, float* __restrict__ q_img,
     float* __restrict__ dvec, int N, int H, int T, int lse_stride) {
-  __shared__ float sa[kBwdTile * (kD + 1)], sb[kBwdTile * (kD + 1)], so[kBwdTile * (kD + 1)];
+  using G = Geo<D>;
+  __shared__ float sa[kBwdTile * (D + 1)], sb[kBwdTile * (D + 1)], so[kBwdTile * (D + 1)];
   const int j = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
   const int first = j * kBwdTile;
-  const size_t stride = static_cast<size_t>(3) * H * kD, ostride = static_cast<size_t>(H) * kD;
-  const float* qb = qkv + static_cast<size_t>(b) * N * stride + h * kD;
-  constexpr int f = kImage32 / 4;
+  const size_t stride = static_cast<size_t>(3) * H * D, ostride = static_cast<size_t>(H) * D;
+  const float* qb = qkv + static_cast<size_t>(b) * N * stride + h * D;
+  constexpr int f = G::kImage32 / 4;
   if (blockIdx.z == 0) {
-    load_tile(qb + H * kD, stride, first, kBwdTile, N, sa);
-    load_tile(qb + 2 * H * kD, stride, first, kBwdTile, N, sb);
+    load_tile<D>(qb + H * D, stride, first, kBwdTile, N, sa);
+    load_tile<D>(qb + 2 * H * D, stride, first, kBwdTile, N, sb);
     __syncthreads();
-    float* o = kv_img + (static_cast<size_t>(bh) * T + j) * (kDqStageBytes / 4);
-    write_image(sa, kBwdTile, false, o, o + f);
-    write_image(sb, kBwdTile, false, o + 2 * f, o + 3 * f);
-    write_image(sa, kBwdTile, true, o + 4 * f, o + 5 * f);
+    float* o = kv_img + (static_cast<size_t>(bh) * T + j) * (G::kDqStageBytes / 4);
+    write_image<D>(sa, kBwdTile, false, o, o + f);
+    write_image<D>(sb, kBwdTile, false, o + 2 * f, o + 3 * f);
+    write_image<D>(sa, kBwdTile, true, o + 4 * f, o + 5 * f);
     return;
   }
-  const size_t orow = static_cast<size_t>(b) * N * ostride + h * kD;
-  load_tile(qb, stride, first, kBwdTile, N, sa);
-  load_tile(dout + orow, ostride, first, kBwdTile, N, sb);
-  load_tile(out + orow, ostride, first, kBwdTile, N, so);
+  const size_t orow = static_cast<size_t>(b) * N * ostride + h * D;
+  load_tile<D>(qb, stride, first, kBwdTile, N, sa);
+  load_tile<D>(dout + orow, ostride, first, kBwdTile, N, sb);
+  load_tile<D>(out + orow, ostride, first, kBwdTile, N, so);
   __syncthreads();
-  float* o = q_img + (static_cast<size_t>(bh) * T + j) * (kDkvTileBytes / 4);
-  write_image(sa, kBwdTile, false, o, o + f);
-  write_image(sb, kBwdTile, false, o + 2 * f, o + 3 * f);
-  write_image(sa, kBwdTile, true, o + 4 * f, o + 5 * f);
-  write_image(sb, kBwdTile, true, o + 6 * f, o + 7 * f);
+  float* o = q_img + (static_cast<size_t>(bh) * T + j) * (G::kDkvTileBytes / 4);
+  write_image<D>(sa, kBwdTile, false, o, o + f);
+  write_image<D>(sb, kBwdTile, false, o + 2 * f, o + 3 * f);
+  write_image<D>(sa, kBwdTile, true, o + 4 * f, o + 5 * f);
+  write_image<D>(sb, kBwdTile, true, o + 6 * f, o + 7 * f);
   if (threadIdx.x < kBwdTile) {
     const int r = threadIdx.x, n = first + r;
     float dsum = 0.f, l = INFINITY;  // a missing row: P = 2^-inf = 0
     if (n < N) {
-      for (int d = 0; d < kD; ++d) dsum = fmaf(sb[r * (kD + 1) + d], so[r * (kD + 1) + d], dsum);
+      for (int d = 0; d < D; ++d) dsum = fmaf(sb[r * (D + 1) + d], so[r * (D + 1) + d], dsum);
       l = lse[static_cast<size_t>(bh) * lse_stride + n];
       dvec[static_cast<size_t>(bh) * T * kBwdTile + n] = dsum;
     }
     o[8 * f + r] = l;
     o[8 * f + kBwdTile + r] = dsum;
   }
+}
+
+__global__ void __launch_bounds__(kPrepThreads) flash_attention_bwd_prep(
+    const float* __restrict__ qkv, const float* __restrict__ out, const float* __restrict__ lse,
+    const float* __restrict__ dout, float* __restrict__ kv_img, float* __restrict__ q_img,
+    float* __restrict__ dvec, int N, int H, int T, int lse_stride) {
+  bwd_prep_body<64>(qkv, out, lse, dout, kv_img, q_img, dvec, N, H, T, lse_stride);
+}
+
+__global__ void __launch_bounds__(kPrepThreads) flash_attention_bwd_prep32(
+    const float* __restrict__ qkv, const float* __restrict__ out, const float* __restrict__ lse,
+    const float* __restrict__ dout, float* __restrict__ kv_img, float* __restrict__ q_img,
+    float* __restrict__ dvec, int N, int H, int T, int lse_stride) {
+  bwd_prep_body<32>(qkv, out, lse, dout, kv_img, q_img, dvec, N, H, T, lse_stride);
 }
 
 // ------------------------------------------------------------ main kernels
@@ -613,12 +718,18 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int s
 }
 
 // Forward. Grid (ceil(N / 128), B H); 2 consumer warpgroups of 64 query
-// rows and a producer warpgroup. kBias: rb's bias added to the scores.
-template <bool kBias>
+// rows and a producer warpgroup. kMode: rb's bias (and mask) added to the
+// scores, or none.
+template <int D, int kMode>
 __device__ __forceinline__ void fwd_body(const float* __restrict__ qkv,
                                          const uint8_t* __restrict__ img,
                                          float* __restrict__ out, float* __restrict__ lse, int N,
                                          int H, int T, int lse_stride, const RelBias& rb) {
+  using G = Geo<D>;
+  using M = Traits<kMode>;
+  constexpr int KS = D / 8;  // k steps of q k^T
+  constexpr int NO = D / 2;  // registers of an output tile (64 x D)
+  constexpr float kScale = M::scale2;
   extern __shared__ uint8_t dyn[];
   uint8_t* ring = align_1k(dyn);
   __shared__ __align__(8) uint64_t full[kFwdStages], empty[kFwdStages];
@@ -629,57 +740,69 @@ __device__ __forceinline__ void fwd_body(const float* __restrict__ qkv,
   if (warp >= 4 * kConsumers) {
     regs_dec<kProducerRegs>();
     if (warp == 4 * kConsumers && lane == 0)
-      produce(img + static_cast<size_t>(bh) * T * kFwdStageBytes, T, kFwdStageBytes,
-              kFwdStageBytes, ring, kFwdStageBytes, kFwdStages, full, empty);
+      produce(img + static_cast<size_t>(bh) * T * G::kFwdStageBytes, T, G::kFwdStageBytes,
+              G::kFwdStageBytes, ring, G::kFwdStageBytes, kFwdStages, full, empty);
     return;
   }
   regs_inc<kConsumerRegs>();
   const int g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.x * kRowsPerCta + (warp >> 2) * 64 + (warp & 3) * 16 + g;
   const int row1 = row0 + 8;
-  const size_t stride = static_cast<size_t>(3) * H * kD;
-  const float* qb = qkv + static_cast<size_t>(b) * N * stride + h * kD;
-  uint32_t qh[8][4], ql[8][4];
+  const size_t stride = static_cast<size_t>(3) * H * D;
+  const float* qb = qkv + static_cast<size_t>(b) * N * stride + h * D;
+  uint32_t qh[KS][4], ql[KS][4];
   {
-    float q[8][4];
-    row_frags(row0 < N ? qb + row0 * stride : nullptr, row1 < N ? qb + row1 * stride : nullptr, t,
-              q);
+    float q[KS][4];
+    row_frags<KS>(row0 < N ? qb + row0 * stride : nullptr,
+                  row1 < N ? qb + row1 * stride : nullptr, t, q);
     split_frags(q, qh, ql);
   }
   // with a bias the scores are scaled to base 2 as they are biased
-  constexpr float sm = kBias ? 1.f : kScale;
+  constexpr float sm = M::bias ? 1.f : kScale;
   RelRow r0, r1;
   const float* tb = nullptr;
-  if constexpr (kBias) {
-    r0 = rel_row(rb, row0);
-    r1 = rel_row(rb, row1);
+  const int* rg = nullptr;  // the window's region codes
+  int g0 = 0, g1 = 0;       // the rows'
+  if constexpr (M::bias) {
+    r0 = rel_row<M::cls>(rb, row0);
+    r1 = rel_row<M::cls>(rb, row1);
     tb = rb.table + static_cast<size_t>(h) * rb.R;
   }
-  float o[32];
+  if constexpr (M::mask) {
+    rg = region_row(rb, b);
+    g0 = __ldg(rg + row0);
+    g1 = __ldg(rg + row1);
+  }
+  float o[NO];
   zero(o);
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   for (int j = 0; j < T; ++j) {
     const int s = j % kFwdStages;
     mbar_wait(&full[s], (j / kFwdStages) & 1);
-    const uint8_t* st = ring + s * kFwdStageBytes;
+    const uint8_t* st = ring + s * G::kFwdStageBytes;
     float sc[32];
     wg_fence();
-    gemm3(sc, qh, ql, desc_sw128(st), desc_sw128(st + kImage64), kFwdTile * 8);
+    gemm3(sc, qh, ql, desc_sw128(st), desc_sw128(st + G::kImage64), kFwdTile * 8);
     wg_commit();
     wg_wait0();
     fence_frags(qh, ql);
     fence_regs(sc);
-    if constexpr (kBias) {
+    if constexpr (M::bias) {
       const int* pj = rb.pos + j * kFwdTile + 2 * t;
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int cj = __ldg(pj + 8 * jj + e);
-          sc[4 * jj + e] =
-              fmaf(sc[4 * jj + e], kScale, __ldg(tb + rel_index(r0, cj)) * kLog2e);
-          sc[4 * jj + 2 + e] =
-              fmaf(sc[4 * jj + 2 + e], kScale, __ldg(tb + rel_index(r1, cj)) * kLog2e);
+          float b0 = __ldg(tb + rel_index<M::cls>(r0, cj));
+          float b1 = __ldg(tb + rel_index<M::cls>(r1, cj));
+          if constexpr (M::mask) {
+            const int gj = __ldg(rg + j * kFwdTile + 8 * jj + 2 * t + e);
+            b0 += mask_term(g0, gj);
+            b1 += mask_term(g1, gj);
+          }
+          sc[4 * jj + e] = fmaf(sc[4 * jj + e], kScale, b0 * kLog2e);
+          sc[4 * jj + 2 + e] = fmaf(sc[4 * jj + 2 + e], kScale, b1 * kLog2e);
         }
     }
     if ((j + 1) * kFwdTile > N) {
@@ -713,17 +836,16 @@ __device__ __forceinline__ void fwd_body(const float* __restrict__ qkv,
     }
     uint32_t ph[8][4], pl[8][4];
     acc_frags<8>(sc, ph, pl);
-    float pv[32];
+    float pv[NO];
     wg_fence();
-    gemm3(pv, ph, pl, desc_sw128(st + 2 * kImage64), desc_sw128(st + 3 * kImage64),
-          kFwdTile * 8);
+    gemm3(pv, ph, pl, desc_sw128(st + 2 * G::kImage64), desc_sw128(st + 3 * G::kImage64), D * 8);
     wg_commit();
     wg_wait0();
     fence_frags(ph, pl);
     fence_regs(pv);
     if (lane == 0) mbar_arrive(&empty[s]);
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
+    for (int jj = 0; jj < D / 8; ++jj) {
       o[4 * jj] = fmaf(o[4 * jj], a0, pv[4 * jj]);
       o[4 * jj + 1] = fmaf(o[4 * jj + 1], a0, pv[4 * jj + 1]);
       o[4 * jj + 2] = fmaf(o[4 * jj + 2], a1, pv[4 * jj + 2]);
@@ -733,10 +855,10 @@ __device__ __forceinline__ void fwd_body(const float* __restrict__ qkv,
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
   const float i0 = 1.f / l0, i1 = 1.f / l1;
-  const size_t ostride = static_cast<size_t>(H) * kD;
-  float* ob = out + static_cast<size_t>(b) * N * ostride + h * kD + 2 * t;
+  const size_t ostride = static_cast<size_t>(H) * D;
+  float* ob = out + static_cast<size_t>(b) * N * ostride + h * D + 2 * t;
 #pragma unroll
-  for (int jj = 0; jj < 8; ++jj) {
+  for (int jj = 0; jj < D / 8; ++jj) {
     if (row0 < N)
       *reinterpret_cast<float2*>(ob + row0 * ostride + 8 * jj) =
           make_float2(o[4 * jj] * i0, o[4 * jj + 1] * i0);
@@ -754,13 +876,25 @@ __device__ __forceinline__ void fwd_body(const float* __restrict__ qkv,
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_fwd(
     const float* __restrict__ qkv, const uint8_t* __restrict__ img, float* __restrict__ out,
     float* __restrict__ lse, int N, int H, int T, int lse_stride) {
-  fwd_body<false>(qkv, img, out, lse, N, H, T, lse_stride, RelBias{});
+  fwd_body<64, kPlain>(qkv, img, out, lse, N, H, T, lse_stride, RelBias{});
 }
 
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_fwd_bias(
     const float* __restrict__ qkv, const uint8_t* __restrict__ img, float* __restrict__ out,
     float* __restrict__ lse, int N, int H, int T, int lse_stride, RelBias rb) {
-  fwd_body<true>(qkv, img, out, lse, N, H, T, lse_stride, rb);
+  fwd_body<64, kBias>(qkv, img, out, lse, N, H, T, lse_stride, rb);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_fwd_window(
+    const float* __restrict__ qkv, const uint8_t* __restrict__ img, float* __restrict__ out,
+    float* __restrict__ lse, int N, int H, int T, int lse_stride, RelBias rb) {
+  fwd_body<32, kWindow>(qkv, img, out, lse, N, H, T, lse_stride, rb);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_fwd_window_mask(
+    const float* __restrict__ qkv, const uint8_t* __restrict__ img, float* __restrict__ out,
+    float* __restrict__ lse, int N, int H, int T, int lse_stride, RelBias rb) {
+  fwd_body<32, kWindowMask>(qkv, img, out, lse, N, H, T, lse_stride, rb);
 }
 
 // dT (see the note). Each consumer warpgroup stages its dS tile (64 query
@@ -925,9 +1059,10 @@ __device__ __forceinline__ void walk_dt(const float* stg, float* runs, float* dt
 }
 
 // The CTA's window of dT: the indices of its patch-token rows, from lo,
-// len of them (0 without one).
+// len of them (0 without one). kCls: token 0 is the class token.
+template <bool kCls>
 __device__ __forceinline__ int2 cta_window(const RelBias& rb, int N) {
-  const int first = max(blockIdx.x * kRowsPerCta, 1);
+  const int first = max(blockIdx.x * kRowsPerCta, kCls ? 1 : 0);
   const int last = min(blockIdx.x * kRowsPerCta + kRowsPerCta - 1, N - 1);
   if (first > last) return make_int2(0, 0);
   const int lo = __ldg(rb.pos + first);
@@ -940,22 +1075,23 @@ __device__ __forceinline__ void dt_zero(float* copies, int copy, int i) {
   for (int k = i; k < 2 * copy; k += 128 * kConsumers + 64) copies[k] = 0.f;
 }
 
+template <bool kCls>
 __device__ __forceinline__ void dt_flush(const float* copies, const RelBias& rb, int h, int N,
                                          int i) {
   float* out = rb.dtable + static_cast<size_t>(h) * rb.R;
-  const int2 win = cta_window(rb, N);
+  const int2 win = cta_window<kCls>(rb, N);
   const int lo = win.x, len = win.y;
-  for (int k = i; k < kDtClass + len; k += 128 * kConsumers + 64) {
+  for (int k = i + (kCls ? 0 : kDtClass); k < kDtClass + len; k += 128 * kConsumers + 64) {
     const float v = copies[k] + copies[rb.copy + k];
     if (v != 0.f) atomicAdd(out + (k < kDtClass ? rb.R - kDtClass + k : lo + k - kDtClass), v);
   }
 }
 
 // Backward, dq. Grid (ceil(N / 128), B H); 128 query rows a CTA (Q and dO
-// raw in registers, dq accumulated there), key tiles of 32. kBias: the
-// scores biased, and dS added into the head's dT by two walker warps (see
-// the note).
-template <bool kBias>
+// raw in registers, dq accumulated there), key tiles of 32. With a bias
+// (kMode): the scores biased, and dS added into the head's dT by two
+// walker warps (see the note).
+template <int D, int kMode>
 __device__ __forceinline__ void dq_body(const float* __restrict__ qkv,
                                         const float* __restrict__ dout,
                                         const float* __restrict__ lse,
@@ -963,6 +1099,12 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ qkv,
                                         const uint8_t* __restrict__ img,
                                         float* __restrict__ dqkv, int N, int H, int T,
                                         int lse_stride, const RelBias& rb) {
+  using G = Geo<D>;
+  using M = Traits<kMode>;
+  constexpr bool kBias = M::bias;
+  constexpr int KS = D / 8;
+  constexpr int NO = D / 2;
+  constexpr float kScale = M::scale2;
   constexpr int kStages = kBias ? kDqBiasStages : kDqStages;
   extern __shared__ uint8_t dyn[];
   uint8_t* ring = align_1k(dyn);
@@ -988,27 +1130,27 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ qkv,
       }
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
-    stg = reinterpret_cast<float*>(dyn + (ring - dyn) + kStages * kDqStageBytes);
+    stg = reinterpret_cast<float*>(dyn + (ring - dyn) + kStages * G::kDqStageBytes);
     copies = stg + 2 * kConsumers * kSkewStage + kRunBytes / 4;
   }
   __syncthreads();
   if (warp >= 4 * kConsumers) {
     regs_dec<kProducerRegs>();
     if (warp == 4 * kConsumers && lane == 0)
-      produce(img + static_cast<size_t>(bh) * T * kDqStageBytes, T, kDqStageBytes, kDqStageBytes,
-              ring, kDqStageBytes, kStages, full, empty);
+      produce(img + static_cast<size_t>(bh) * T * G::kDqStageBytes, T, G::kDqStageBytes,
+              G::kDqStageBytes, ring, G::kDqStageBytes, kStages, full, empty);
     if constexpr (kBias) {
       const int w = warp - 4 * kConsumers - 1;
       if (w == 0 || w == 1) {
         const int i = 128 * kConsumers + 32 * w + lane;
         dt_zero(copies, rb.copy, i);
         dt_sync();
-        const int2 win = cta_window(rb, N);
+        const int2 win = cta_window<M::cls>(rb, N);
         walk_dt(stg + 2 * w * kSkewStage, stg + 2 * kConsumers * kSkewStage + w * 2 * 32 * 32,
                 copies + w * rb.copy + kDtClass, dt_full + 2 * w, dt_empty + 2 * w, T, w, lane,
                 win.x, win.y, rb);
         dt_sync();
-        dt_flush(copies, rb, h, N, i);
+        dt_flush<M::cls>(copies, rb, h, N, i);
       }
     }
     return;
@@ -1022,46 +1164,53 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ qkv,
   const int g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.x * kRowsPerCta + (warp >> 2) * 64 + (warp & 3) * 16 + g;
   const int row1 = row0 + 8;
-  const size_t stride = static_cast<size_t>(3) * H * kD, ostride = static_cast<size_t>(H) * kD;
-  const float* qb = qkv + static_cast<size_t>(b) * N * stride + h * kD;
-  const float* db = dout + static_cast<size_t>(b) * N * ostride + h * kD;
-  float q[8][4], d[8][4];
-  row_frags(row0 < N ? qb + row0 * stride : nullptr, row1 < N ? qb + row1 * stride : nullptr, t,
-            q);
-  row_frags(row0 < N ? db + row0 * ostride : nullptr, row1 < N ? db + row1 * ostride : nullptr, t,
-            d);
+  const size_t stride = static_cast<size_t>(3) * H * D, ostride = static_cast<size_t>(H) * D;
+  const float* qb = qkv + static_cast<size_t>(b) * N * stride + h * D;
+  const float* db = dout + static_cast<size_t>(b) * N * ostride + h * D;
+  float q[KS][4], d[KS][4];
+  row_frags<KS>(row0 < N ? qb + row0 * stride : nullptr, row1 < N ? qb + row1 * stride : nullptr,
+                t, q);
+  row_frags<KS>(row0 < N ? db + row0 * ostride : nullptr,
+                row1 < N ? db + row1 * ostride : nullptr, t, d);
   const float* lb = lse + static_cast<size_t>(bh) * lse_stride;
   const float* vb = dvec + static_cast<size_t>(bh) * T * kBwdTile;
   const float L0 = row0 < N ? lb[row0] : 0.f, L1 = row1 < N ? lb[row1] : 0.f;
   const float D0 = row0 < N ? vb[row0] : 0.f, D1 = row1 < N ? vb[row1] : 0.f;
   int ci0 = 0, ci1 = 0;  // the rows' offsets c_i
   const float* tb = nullptr;
+  const int* rg = nullptr;  // the window's region codes
+  int g0 = 0, g1 = 0;       // the rows'
   if constexpr (kBias) {
     ci0 = __ldg(rb.pos + row0);
     ci1 = __ldg(rb.pos + row1);
     tb = rb.table + static_cast<size_t>(h) * rb.R;
   }
-  float dq[32];
+  if constexpr (M::mask) {
+    rg = region_row(rb, b);
+    g0 = __ldg(rg + row0);
+    g1 = __ldg(rg + row1);
+  }
+  float dq[NO];
   zero(dq);
   for (int j = 0; j < T; ++j) {
     const int s = j % kStages;
     mbar_wait(&full[s], (j / kStages) & 1);
-    const uint8_t* st = ring + s * kDqStageBytes;
+    const uint8_t* st = ring + s * G::kDqStageBytes;
     float sc[16], dp[16];
     {
-      uint32_t hi[8][4], lo[8][4];
+      uint32_t hi[KS][4], lo[KS][4];
       split_frags(q, hi, lo);
       wg_fence();
-      gemm3(sc, hi, lo, desc_sw128(st), desc_sw128(st + kImage32), kBwdTile * 8);
+      gemm3(sc, hi, lo, desc_sw128(st), desc_sw128(st + G::kImage32), kBwdTile * 8);
       wg_commit();
       wg_wait0();
       fence_frags(hi, lo);
     }
     {
-      uint32_t hi[8][4], lo[8][4];
+      uint32_t hi[KS][4], lo[KS][4];
       split_frags(d, hi, lo);
       wg_fence();
-      gemm3(dp, hi, lo, desc_sw128(st + 2 * kImage32), desc_sw128(st + 3 * kImage32),
+      gemm3(dp, hi, lo, desc_sw128(st + 2 * G::kImage32), desc_sw128(st + 3 * G::kImage32),
             kBwdTile * 8);
       wg_commit();
       wg_wait0();
@@ -1077,8 +1226,13 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ qkv,
         const bool ok = col < N;
         if constexpr (kBias) {
           const int cj = __ldg(rb.pos + col);
-          const float b0 = __ldg(tb + rel_index(rb, ci0, cj));
-          const float b1 = __ldg(tb + rel_index(rb, ci1, cj));
+          float b0 = __ldg(tb + rel_index<M::cls>(rb, ci0, cj));
+          float b1 = __ldg(tb + rel_index<M::cls>(rb, ci1, cj));
+          if constexpr (M::mask) {
+            const int gj = __ldg(rg + col);
+            b0 += mask_term(g0, gj);
+            b1 += mask_term(g1, gj);
+          }
           const float p0 = ok ? exp2f(fmaf(sc[4 * jj + e], kScale, fmaf(b0, kLog2e, -L0))) : 0.f;
           const float p1 =
               ok ? exp2f(fmaf(sc[4 * jj + 2 + e], kScale, fmaf(b1, kLog2e, -L1))) : 0.f;
@@ -1095,13 +1249,14 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ qkv,
     if constexpr (kBias) {
       if (j >= 2) mbar_wait(&dt_empty[sb], ((j >> 1) - 1) & 1);
       stage_dt(stg + sb * kSkewStage, copies + wg * rb.copy, sc, g, t, (warp & 3) * 16,
-               row0 == 0, j == 0);
+               M::cls && row0 == 0, M::cls && j == 0);
     }
     uint32_t hi[4][4], lo[4][4];
     acc_frags<4>(sc, hi, lo);
-    float tile[32];
+    float tile[NO];
     wg_fence();
-    gemm3(tile, hi, lo, desc_sw128(st + 4 * kImage32), desc_sw128(st + 5 * kImage32), kD * 8);
+    gemm3(tile, hi, lo, desc_sw128(st + 4 * G::kImage32), desc_sw128(st + 5 * G::kImage32),
+          D * 8);
     wg_commit();
     wg_wait0();
     fence_frags(hi, lo);
@@ -1114,19 +1269,19 @@ __device__ __forceinline__ void dq_body(const float* __restrict__ qkv,
     }
     add(dq, tile);
   }
-  float* gb = dqkv + static_cast<size_t>(b) * N * stride + h * kD + 2 * t;
+  float* gb = dqkv + static_cast<size_t>(b) * N * stride + h * D + 2 * t;
 #pragma unroll
-  for (int jj = 0; jj < 8; ++jj) {
+  for (int jj = 0; jj < D / 8; ++jj) {
     if (row0 < N)
       *reinterpret_cast<float2*>(gb + row0 * stride + 8 * jj) =
-          make_float2(dq[4 * jj] * 0.125f, dq[4 * jj + 1] * 0.125f);
+          make_float2(dq[4 * jj] * M::grad, dq[4 * jj + 1] * M::grad);
     if (row1 < N)
       *reinterpret_cast<float2*>(gb + row1 * stride + 8 * jj) =
-          make_float2(dq[4 * jj + 2] * 0.125f, dq[4 * jj + 3] * 0.125f);
+          make_float2(dq[4 * jj + 2] * M::grad, dq[4 * jj + 3] * M::grad);
   }
   if constexpr (kBias) {
     dt_sync();
-    dt_flush(copies, rb, h, N, threadIdx.x);
+    dt_flush<M::cls>(copies, rb, h, N, threadIdx.x);
   }
 }
 
@@ -1134,101 +1289,134 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dq(
     const float* __restrict__ qkv, const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ dvec, const uint8_t* __restrict__ img, float* __restrict__ dqkv,
     int N, int H, int T, int lse_stride) {
-  dq_body<false>(qkv, dout, lse, dvec, img, dqkv, N, H, T, lse_stride, RelBias{});
+  dq_body<64, kPlain>(qkv, dout, lse, dvec, img, dqkv, N, H, T, lse_stride, RelBias{});
 }
 
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dq_bias(
     const float* __restrict__ qkv, const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ dvec, const uint8_t* __restrict__ img, float* __restrict__ dqkv,
     int N, int H, int T, int lse_stride, RelBias rb) {
-  dq_body<true>(qkv, dout, lse, dvec, img, dqkv, N, H, T, lse_stride, rb);
+  dq_body<64, kBias>(qkv, dout, lse, dvec, img, dqkv, N, H, T, lse_stride, rb);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dq_window(
+    const float* __restrict__ qkv, const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ dvec, const uint8_t* __restrict__ img, float* __restrict__ dqkv,
+    int N, int H, int T, int lse_stride, RelBias rb) {
+  dq_body<32, kWindow>(qkv, dout, lse, dvec, img, dqkv, N, H, T, lse_stride, rb);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dq_window_mask(
+    const float* __restrict__ qkv, const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ dvec, const uint8_t* __restrict__ img, float* __restrict__ dqkv,
+    int N, int H, int T, int lse_stride, RelBias rb) {
+  dq_body<32, kWindowMask>(qkv, dout, lse, dvec, img, dqkv, N, H, T, lse_stride, rb);
 }
 
 // Backward, dk and dv. Grid (ceil(N / 128), B H); 128 key rows a CTA (raw K
 // and V in shared memory, dK and dV in registers), query tiles of 32.
-// kBias: the scores biased.
-template <bool kBias>
+// With a bias (kMode): the scores biased.
+template <int D, int kMode>
 __device__ __forceinline__ void dkdv_body(const float* __restrict__ qkv,
                                           const uint8_t* __restrict__ img,
                                           float* __restrict__ dqkv, int N, int H, int T,
                                           const RelBias& rb) {
+  using G = Geo<D>;
+  using M = Traits<kMode>;
+  constexpr int KS = D / 8;
+  constexpr int NO = D / 2;
+  constexpr int P = G::kRawPitch;
+  constexpr float kScale = M::scale2;
   extern __shared__ uint8_t dyn[];
   uint8_t* base = align_1k(dyn);
   float* raw = reinterpret_cast<float*>(base);  // K rows, then V rows, pitch kRawPitch
-  uint8_t* ring = base + kDkvRawBytes;
+  uint8_t* ring = base + G::kDkvRawBytes;
   __shared__ __align__(8) uint64_t full[kDkvStages], empty[kDkvStages];
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int first = blockIdx.x * kRowsPerCta;
-  const size_t stride = static_cast<size_t>(3) * H * kD;
-  const float* kb = qkv + static_cast<size_t>(b) * N * stride + (H + h) * kD;
+  const size_t stride = static_cast<size_t>(3) * H * D;
+  const float* kb = qkv + static_cast<size_t>(b) * N * stride + (H + h) * D;
   init_ring(full, empty, kDkvStages);
-  for (int i = threadIdx.x; i < 2 * kRowsPerCta * kD / 4; i += blockDim.x) {
-    const int which = i / (kRowsPerCta * kD / 4), rem = i % (kRowsPerCta * kD / 4);
-    const int r = rem / (kD / 4), c = (rem % (kD / 4)) * 4;
+  for (int i = threadIdx.x; i < 2 * kRowsPerCta * D / 4; i += blockDim.x) {
+    const int which = i / (kRowsPerCta * D / 4), rem = i % (kRowsPerCta * D / 4);
+    const int r = rem / (D / 4), c = (rem % (D / 4)) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (first + r < N)
-      v = __ldg(reinterpret_cast<const float4*>(kb + which * H * kD + (first + r) * stride + c));
-    *reinterpret_cast<float4*>(raw + (which * kRowsPerCta + r) * kRawPitch + c) = v;
+      v = __ldg(reinterpret_cast<const float4*>(kb + which * H * D + (first + r) * stride + c));
+    *reinterpret_cast<float4*>(raw + (which * kRowsPerCta + r) * P + c) = v;
   }
   __syncthreads();
   if (warp >= 4 * kConsumers) {
     regs_dec<kProducerRegs>();
     if (warp == 4 * kConsumers && lane == 0)
-      produce(img + static_cast<size_t>(bh) * T * kDkvTileBytes, T, kDkvTileBytes, kDkvTileBytes,
-              ring, kDkvStageBytes, kDkvStages, full, empty);
+      produce(img + static_cast<size_t>(bh) * T * G::kDkvTileBytes, T, G::kDkvTileBytes,
+              G::kDkvTileBytes, ring, G::kDkvStageBytes, kDkvStages, full, empty);
     return;
   }
   regs_inc<kConsumerRegs>();
   const int g = lane >> 2, t = lane & 3;
   const int lr0 = (warp >> 2) * 64 + (warp & 3) * 16 + g;  // local rows lr0, lr0 + 8
-  const float* rk0 = raw + lr0 * kRawPitch;
-  const float* rv0 = raw + (kRowsPerCta + lr0) * kRawPitch;
+  const float* rk0 = raw + lr0 * P;
+  const float* rv0 = raw + (kRowsPerCta + lr0) * P;
   int c0 = 0, c1 = 0;  // the key rows' grid offsets
   const float* tb = nullptr;
-  if constexpr (kBias) {
+  const int* rg = nullptr;  // the window's region codes
+  int g0 = 0, g1 = 0;       // the key rows'
+  if constexpr (M::bias) {
     c0 = __ldg(rb.pos + first + lr0);
     c1 = __ldg(rb.pos + first + lr0 + 8);
     tb = rb.table + static_cast<size_t>(h) * rb.R;
   }
-  float dk[32], dv[32];
+  if constexpr (M::mask) {
+    rg = region_row(rb, b);
+    g0 = __ldg(rg + first + lr0);
+    g1 = __ldg(rg + first + lr0 + 8);
+  }
+  float dk[NO], dv[NO];
   zero(dk);
   zero(dv);
   for (int j = 0; j < T; ++j) {
     const int s = j % kDkvStages;
     // the tile's bias, gathered before the products it does not depend on
     float bias[16];
-    if constexpr (kBias) {
+    if constexpr (M::bias) {
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const RelRow q = rel_row(rb, j * kBwdTile + 8 * jj + 2 * t + e);
-          bias[4 * jj + e] = __ldg(tb + rel_index(q, c0));
-          bias[4 * jj + 2 + e] = __ldg(tb + rel_index(q, c1));
+          const int qi = j * kBwdTile + 8 * jj + 2 * t + e;
+          const RelRow q = rel_row<M::cls>(rb, qi);
+          bias[4 * jj + e] = __ldg(tb + rel_index<M::cls>(q, c0));
+          bias[4 * jj + 2 + e] = __ldg(tb + rel_index<M::cls>(q, c1));
+          if constexpr (M::mask) {
+            const int gq = __ldg(rg + qi);
+            bias[4 * jj + e] += mask_term(gq, g0);
+            bias[4 * jj + 2 + e] += mask_term(gq, g1);
+          }
         }
     }
     mbar_wait(&full[s], (j / kDkvStages) & 1);
-    const uint8_t* st = ring + s * kDkvStageBytes;
+    const uint8_t* st = ring + s * G::kDkvStageBytes;
     float sc[16], dp[16];
 #pragma unroll
     for (int which = 0; which < 2; ++which) {
       const float* r0 = which ? rv0 : rk0;
-      float a[8][4];
+      float a[KS][4];
 #pragma unroll
-      for (int ks = 0; ks < 8; ++ks) {
+      for (int ks = 0; ks < KS; ++ks) {
         a[ks][0] = r0[8 * ks + t];
-        a[ks][1] = r0[8 * kRawPitch + 8 * ks + t];
+        a[ks][1] = r0[8 * P + 8 * ks + t];
         a[ks][2] = r0[8 * ks + t + 4];
-        a[ks][3] = r0[8 * kRawPitch + 8 * ks + t + 4];
+        a[ks][3] = r0[8 * P + 8 * ks + t + 4];
       }
-      uint32_t hi[8][4], lo[8][4];
+      uint32_t hi[KS][4], lo[KS][4];
       split_frags(a, hi, lo);
       wg_fence();
       if (which == 0)
-        gemm3(sc, hi, lo, desc_sw128(st), desc_sw128(st + kImage32), kBwdTile * 8);
+        gemm3(sc, hi, lo, desc_sw128(st), desc_sw128(st + G::kImage32), kBwdTile * 8);
       else
-        gemm3(dp, hi, lo, desc_sw128(st + 2 * kImage32), desc_sw128(st + 3 * kImage32),
+        gemm3(dp, hi, lo, desc_sw128(st + 2 * G::kImage32), desc_sw128(st + 3 * G::kImage32),
               kBwdTile * 8);
       wg_commit();
       wg_wait0();
@@ -1236,7 +1424,7 @@ __device__ __forceinline__ void dkdv_body(const float* __restrict__ qkv,
     }
     fence_regs(sc);
     fence_regs(dp);
-    const float* ls = reinterpret_cast<const float*>(st + kDkvImageBytes);
+    const float* ls = reinterpret_cast<const float*>(st + G::kDkvImageBytes);
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
@@ -1244,7 +1432,7 @@ __device__ __forceinline__ void dkdv_body(const float* __restrict__ qkv,
         const int c = 8 * jj + 2 * t + e;
         const float L = ls[c], Dc = ls[kBwdTile + c];
         float p0, p1;
-        if constexpr (kBias) {
+        if constexpr (M::bias) {
           p0 = exp2f(fmaf(sc[4 * jj + e], kScale, fmaf(bias[4 * jj + e], kLog2e, -L)));
           p1 = exp2f(fmaf(sc[4 * jj + 2 + e], kScale, fmaf(bias[4 * jj + 2 + e], kLog2e, -L)));
         } else {
@@ -1259,10 +1447,10 @@ __device__ __forceinline__ void dkdv_body(const float* __restrict__ qkv,
     uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];
     acc_frags<4>(sc, ph, pl);
     acc_frags<4>(dp, sh, sl);
-    float tv[32], tk[32];
+    float tv[NO], tk[NO];
     wg_fence();
-    gemm3(tv, ph, pl, desc_sw128(st + 6 * kImage32), desc_sw128(st + 7 * kImage32), kD * 8);
-    gemm3(tk, sh, sl, desc_sw128(st + 4 * kImage32), desc_sw128(st + 5 * kImage32), kD * 8);
+    gemm3(tv, ph, pl, desc_sw128(st + 6 * G::kImage32), desc_sw128(st + 7 * G::kImage32), D * 8);
+    gemm3(tk, sh, sl, desc_sw128(st + 4 * G::kImage32), desc_sw128(st + 5 * G::kImage32), D * 8);
     wg_commit();
     wg_wait0();
     fence_frags(ph, pl);
@@ -1274,19 +1462,19 @@ __device__ __forceinline__ void dkdv_body(const float* __restrict__ qkv,
     add(dk, tk);
   }
   const int row0 = first + lr0, row1 = row0 + 8;
-  float* gk = dqkv + static_cast<size_t>(b) * N * stride + (H + h) * kD + 2 * t;
-  float* gv = gk + H * kD;
+  float* gk = dqkv + static_cast<size_t>(b) * N * stride + (H + h) * D + 2 * t;
+  float* gv = gk + H * D;
 #pragma unroll
-  for (int jj = 0; jj < 8; ++jj) {
+  for (int jj = 0; jj < D / 8; ++jj) {
     if (row0 < N) {
       *reinterpret_cast<float2*>(gk + row0 * stride + 8 * jj) =
-          make_float2(dk[4 * jj] * 0.125f, dk[4 * jj + 1] * 0.125f);
+          make_float2(dk[4 * jj] * M::grad, dk[4 * jj + 1] * M::grad);
       *reinterpret_cast<float2*>(gv + row0 * stride + 8 * jj) =
           make_float2(dv[4 * jj], dv[4 * jj + 1]);
     }
     if (row1 < N) {
       *reinterpret_cast<float2*>(gk + row1 * stride + 8 * jj) =
-          make_float2(dk[4 * jj + 2] * 0.125f, dk[4 * jj + 3] * 0.125f);
+          make_float2(dk[4 * jj + 2] * M::grad, dk[4 * jj + 3] * M::grad);
       *reinterpret_cast<float2*>(gv + row1 * stride + 8 * jj) =
           make_float2(dv[4 * jj + 2], dv[4 * jj + 3]);
     }
@@ -1296,62 +1484,96 @@ __device__ __forceinline__ void dkdv_body(const float* __restrict__ qkv,
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dkdv(
     const float* __restrict__ qkv, const uint8_t* __restrict__ img, float* __restrict__ dqkv,
     int N, int H, int T) {
-  dkdv_body<false>(qkv, img, dqkv, N, H, T, RelBias{});
+  dkdv_body<64, kPlain>(qkv, img, dqkv, N, H, T, RelBias{});
 }
 
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dkdv_bias(
     const float* __restrict__ qkv, const uint8_t* __restrict__ img, float* __restrict__ dqkv,
     int N, int H, int T, RelBias rb) {
-  dkdv_body<true>(qkv, img, dqkv, N, H, T, rb);
+  dkdv_body<64, kBias>(qkv, img, dqkv, N, H, T, rb);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dkdv_window(
+    const float* __restrict__ qkv, const uint8_t* __restrict__ img, float* __restrict__ dqkv,
+    int N, int H, int T, RelBias rb) {
+  dkdv_body<32, kWindow>(qkv, img, dqkv, N, H, T, rb);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) flash_attention_bwd_dkdv_window_mask(
+    const float* __restrict__ qkv, const uint8_t* __restrict__ img, float* __restrict__ dqkv,
+    int N, int H, int T, RelBias rb) {
+  dkdv_body<32, kWindowMask>(qkv, img, dqkv, N, H, T, rb);
 }
 
 int tiles(int n, int tile) { return (n + tile - 1) / tile; }
 
+// The main kernels of a (width, mode), and their shared memory: the dq
+// pass's with a bias is the largest a launch may ask (its copies of dT
+// vary with the grid).
+template <int D, int kMode>
+struct Kernels;
+
+template <>
+struct Kernels<64, kPlain> {
+  static constexpr auto fwd = flash_attention_fwd;
+  static constexpr auto dkdv = flash_attention_bwd_dkdv;
+  static constexpr auto dq = flash_attention_bwd_dq;
+};
+template <>
+struct Kernels<64, kBias> {
+  static constexpr auto fwd = flash_attention_fwd_bias;
+  static constexpr auto dkdv = flash_attention_bwd_dkdv_bias;
+  static constexpr auto dq = flash_attention_bwd_dq_bias;
+};
+template <>
+struct Kernels<32, kWindow> {
+  static constexpr auto fwd = flash_attention_fwd_window;
+  static constexpr auto dkdv = flash_attention_bwd_dkdv_window;
+  static constexpr auto dq = flash_attention_bwd_dq_window;
+};
+template <>
+struct Kernels<32, kWindowMask> {
+  static constexpr auto fwd = flash_attention_fwd_window_mask;
+  static constexpr auto dkdv = flash_attention_bwd_dkdv_window_mask;
+  static constexpr auto dq = flash_attention_bwd_dq_window_mask;
+};
+
+template <int D, int kMode>
 int set_smem() {
+  using K = Kernels<D, kMode>;
   static int err = -1;
   if (err < 0) {
     err = static_cast<int>(cudaFuncSetAttribute(
-        flash_attention_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem));
+        K::fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, Geo<D>::kFwdSmem));
+    if (!err)
+      err = static_cast<int>(
+          cudaFuncSetAttribute(K::dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Traits<kMode>::bias ? kDqBiasSmemMax : Geo<D>::kDqSmem));
     if (!err)
       err = static_cast<int>(cudaFuncSetAttribute(
-          flash_attention_bwd_dq, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem));
-    if (!err)
-      err = static_cast<int>(cudaFuncSetAttribute(
-          flash_attention_bwd_dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem));
+          K::dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, Geo<D>::kDkvSmem));
   }
   return err;
 }
 
-int set_smem_bias() {
-  static int err = -1;
-  if (err < 0) {
-    err = static_cast<int>(cudaFuncSetAttribute(
-        flash_attention_fwd_bias, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem));
-    if (!err)
-      err = static_cast<int>(cudaFuncSetAttribute(flash_attention_bwd_dq_bias,
-                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                  kDqBiasSmemMax));
-    if (!err)
-      err = static_cast<int>(cudaFuncSetAttribute(
-          flash_attention_bwd_dkdv_bias, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem));
-  }
-  return err;
+template <int D>
+int dq_bias_smem(int copy) {
+  return Geo<D>::kDqBiasRingSmem + kDtStageBytes + kRunBytes + 8 * copy;
 }
 
-int dq_bias_smem(int copy) { return kDqBiasRingSmem + kDtStageBytes + kRunBytes + 8 * copy; }
-
-// The floats a copy of dT takes in the dq pass on a wh x ww grid (N = 1 +
-// wh ww): the class token's three entries and the largest window of a
-// CTA's rows, rounded up to 4. The window of rows first..last (its patch
-// tokens) runs from c_first to K0 + c_last, c_n = y (2 Ww - 1) + x of
-// patch n at (y, x); at most K0 + 127 + dy (Ww - 1) + 1 entries, dy <= Wh
-// - 1 the grid rows the block spans past its first: 3/4 (R - 3) + 128.
-int dq_bias_copy(int N, int wh, int ww) {
-  const auto c = [ww](int n) { return (n - 1) / ww * (2 * ww - 1) + (n - 1) % ww; };
+// The floats a copy of dT takes in the dq pass on a wh x ww grid of N = cls
+// + wh ww tokens (cls: a class token first): the class token's three
+// entries and the largest window of a CTA's rows, rounded up to 4. The
+// window of rows first..last (its patch tokens) runs from c_first to K0 +
+// c_last, c_n = y (2 Ww - 1) + x of patch n at (y, x); at most K0 + 127 +
+// dy (Ww - 1) + 1 entries, dy <= Wh - 1 the grid rows the block spans past
+// its first: 3/4 (R - 3) + 128.
+int dq_bias_copy(int N, int wh, int ww, int cls) {
+  const auto c = [ww, cls](int n) { return (n - cls) / ww * (2 * ww - 1) + (n - cls) % ww; };
   const int k0 = (wh - 1) * (2 * ww - 1) + ww - 1;
   int len = 0;
   for (int first = 0; first < N; first += kRowsPerCta) {
-    const int f = first > 0 ? first : 1, l = first + kRowsPerCta - 1 < N ? first + kRowsPerCta - 1 : N - 1;
+    const int f = first > cls ? first : cls, l = first + kRowsPerCta - 1 < N ? first + kRowsPerCta - 1 : N - 1;
     if (f <= l && k0 + c(l) - c(f) + 1 > len) len = k0 + c(l) - c(f) + 1;
   }
   return (kDtClass + len + 3) & ~3;
@@ -1359,132 +1581,160 @@ int dq_bias_copy(int N, int wh, int ww) {
 
 }  // namespace
 
-// Bytes of scratch a call needs (backward != 0: the backward's), and the
-// length of a (frame, head)'s log-sum-exp row.
-extern "C" long long vit_attention_scratch_bytes(int B, int N, int H, int backward) {
+// Bytes of scratch a call needs at head width D (backward != 0: the
+// backward's), and the length of a (frame, head)'s log-sum-exp row.
+extern "C" long long vit_attention_scratch_bytes_width(int B, int N, int H, int D,
+                                                       int backward) {
   const long long bh = static_cast<long long>(B) * H;
-  if (!backward) return bh * tiles(N, kFwdTile) * kFwdStageBytes;
+  const bool w64 = D == 64;
+  if (!backward) return bh * tiles(N, kFwdTile) * (w64 ? Geo<64>::kFwdStageBytes : Geo<32>::kFwdStageBytes);
   const long long t = tiles(N, kBwdTile);
-  return bh * t * (kDqStageBytes + kDkvTileBytes + kBwdTile * 4);
+  return bh * t *
+         (w64 ? Geo<64>::kDqStageBytes + Geo<64>::kDkvTileBytes
+              : Geo<32>::kDqStageBytes + Geo<32>::kDkvTileBytes) +
+         bh * t * kBwdTile * 4;
 }
 
 extern "C" int vit_attention_lse_stride(int N) { return tiles(N, kFwdTile) * kFwdTile; }
 
-// The largest table (entries a head) the bias kernels take, and the length
-// pos must have for N tokens.
+// The largest table (entries a head) the bias kernels take at head width
+// 64, and the length pos (and each window's region codes) must have for N
+// tokens.
 extern "C" int vit_attention_max_table() { return kMaxTable; }
 
-// The floats of each of the dq pass's two copies of dT on a wh x ww grid.
-extern "C" int vit_attention_dq_bias_copy(int wh, int ww) {
-  return dq_bias_copy(1 + wh * ww, wh, ww);
+// The floats of each of the dq pass's two copies of dT on a wh x ww grid
+// with a class token (cls 1) or without (0).
+extern "C" int vit_attention_dq_bias_copy_cls(int wh, int ww, int cls) {
+  return dq_bias_copy(cls + wh * ww, wh, ww, cls);
 }
 
 extern "C" int vit_attention_pos_length(int N) { return tiles(N, kPosTile) * kPosTile + 32; }
 
 namespace {
 
-// The forward; with a bias where rb.table is not null.
-int forward(const float* qkv, float* out, float* lse, void* scratch, int B, int N, int H,
-            const RelBias& rb, cudaStream_t stream) {
-  const bool bias = rb.table != nullptr;
-  if (int err = bias ? set_smem_bias() : set_smem()) return err;
+template <int D, int kMode>
+int forward_t(const float* qkv, float* out, float* lse, void* scratch, int B, int N, int H,
+              const RelBias& rb, cudaStream_t stream) {
+  using K = Kernels<D, kMode>;
+  if (int err = set_smem<D, kMode>()) return err;
   const int t = tiles(N, kFwdTile), bh = B * H;
   float* img = static_cast<float*>(scratch);
-  flash_attention_fwd_prep<<<dim3(t, bh), kPrepThreads, 0, stream>>>(qkv, img, N, H, t);
+  const auto prep = D == 64 ? flash_attention_fwd_prep : flash_attention_fwd_prep32;
+  prep<<<dim3(t, bh), kPrepThreads, 0, stream>>>(qkv, img, N, H, t);
   if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
   const dim3 grid(tiles(N, kRowsPerCta), bh);
   const uint8_t* im = reinterpret_cast<const uint8_t*>(img);
-  if (bias)
-    flash_attention_fwd_bias<<<grid, kThreads, kFwdSmem, stream>>>(qkv, im, out, lse, N, H, t,
-                                                                  t * kFwdTile, rb);
+  if constexpr (Traits<kMode>::bias)
+    K::fwd<<<grid, kThreads, Geo<D>::kFwdSmem, stream>>>(qkv, im, out, lse, N, H, t, t * kFwdTile,
+                                                          rb);
   else
-    flash_attention_fwd<<<grid, kThreads, kFwdSmem, stream>>>(qkv, im, out, lse, N, H, t,
-                                                             t * kFwdTile);
+    K::fwd<<<grid, kThreads, Geo<D>::kFwdSmem, stream>>>(qkv, im, out, lse, N, H, t, t * kFwdTile);
   return static_cast<int>(cudaGetLastError());
 }
 
-int backward(const float* qkv, const float* out, const float* lse, const float* dout,
-             float* dqkv, void* scratch, int B, int N, int H, const RelBias& rb,
-             cudaStream_t stream) {
-  const bool bias = rb.table != nullptr;
-  if (int err = bias ? set_smem_bias() : set_smem()) return err;
+template <int D, int kMode>
+int backward_t(const float* qkv, const float* out, const float* lse, const float* dout,
+               float* dqkv, void* scratch, int B, int N, int H, const RelBias& rb,
+               cudaStream_t stream) {
+  using K = Kernels<D, kMode>;
+  using G = Geo<D>;
+  if (int err = set_smem<D, kMode>()) return err;
   const int t = tiles(N, kBwdTile), bh = B * H;
   uint8_t* kv_img = static_cast<uint8_t*>(scratch);
-  uint8_t* q_img = kv_img + static_cast<size_t>(bh) * t * kDqStageBytes;
-  float* dvec = reinterpret_cast<float*>(q_img + static_cast<size_t>(bh) * t * kDkvTileBytes);
+  uint8_t* q_img = kv_img + static_cast<size_t>(bh) * t * G::kDqStageBytes;
+  float* dvec = reinterpret_cast<float*>(q_img + static_cast<size_t>(bh) * t * G::kDkvTileBytes);
   const int lse_stride = tiles(N, kFwdTile) * kFwdTile;
-  flash_attention_bwd_prep<<<dim3(t, bh, 2), kPrepThreads, 0, stream>>>(
+  const auto prep = D == 64 ? flash_attention_bwd_prep : flash_attention_bwd_prep32;
+  prep<<<dim3(t, bh, 2), kPrepThreads, 0, stream>>>(
       qkv, out, lse, dout, reinterpret_cast<float*>(kv_img), reinterpret_cast<float*>(q_img), dvec,
       N, H, t, lse_stride);
   if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
   const dim3 grid(tiles(N, kRowsPerCta), bh);
-  if (bias)
-    flash_attention_bwd_dkdv_bias<<<grid, kThreads, kDkvSmem, stream>>>(qkv, q_img, dqkv, N, H,
-                                                                       t, rb);
+  if constexpr (Traits<kMode>::bias)
+    K::dkdv<<<grid, kThreads, G::kDkvSmem, stream>>>(qkv, q_img, dqkv, N, H, t, rb);
   else
-    flash_attention_bwd_dkdv<<<grid, kThreads, kDkvSmem, stream>>>(qkv, q_img, dqkv, N, H, t);
+    K::dkdv<<<grid, kThreads, G::kDkvSmem, stream>>>(qkv, q_img, dqkv, N, H, t);
   if (cudaError_t err = cudaGetLastError()) return static_cast<int>(err);
-  if (bias)
-    flash_attention_bwd_dq_bias<<<grid, kThreads, dq_bias_smem(rb.copy), stream>>>(
-        qkv, dout, lse, dvec, kv_img, dqkv, N, H, t, lse_stride, rb);
+  if constexpr (Traits<kMode>::bias)
+    K::dq<<<grid, kThreads, dq_bias_smem<D>(rb.copy), stream>>>(qkv, dout, lse, dvec, kv_img,
+                                                                dqkv, N, H, t, lse_stride, rb);
   else
-    flash_attention_bwd_dq<<<grid, kThreads, kDqSmem, stream>>>(qkv, dout, lse, dvec, kv_img,
-                                                               dqkv, N, H, t, lse_stride);
+    K::dq<<<grid, kThreads, G::kDqSmem, stream>>>(qkv, dout, lse, dvec, kv_img, dqkv, N, H, t,
+                                                  lse_stride);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bias of a wh x ww grid of N = cls + wh ww tokens at head width D,
+// with the shift mask's region codes or none; an invalid R where the
+// kernels do not take it: a class token at 64 (BEiT), none at 32 (the
+// windows).
+RelBias grid_bias(const float* table, const int* pos, const int* region, float* dtable, int N,
+                  int D, int wh, int ww, int cls, int nW) {
+  const int R = (2 * wh - 1) * (2 * ww - 1) + 3 * cls;
+  const bool form = D == 64 ? cls == 1 && region == nullptr : D == 32 && cls == 0;
+  const bool ok = form && wh >= 0 && ww >= 0 && N == cls + wh * ww && nW >= 1 &&
+                  (D == 32 || R <= kMaxTable);
+  const int copy = ok ? dq_bias_copy(N, wh, ww, cls) : 0;
+  const int max_copy = D == 64 ? kMaxCopy<64> : kMaxCopy<32>;
+  return {table, pos, dtable, ok && copy <= max_copy ? R : -1, (wh - 1) * (2 * ww - 1) + ww - 1,
+          ww, copy, region, nW, tiles(N, kPosTile) * kPosTile + 32};
 }
 
 }  // namespace
 
 extern "C" int vit_attention_forward(const float* qkv, float* out, float* lse, void* scratch,
                                      int B, int N, int H, cudaStream_t stream) {
-  return forward(qkv, out, lse, scratch, B, N, H, RelBias{}, stream);
+  return forward_t<64, kPlain>(qkv, out, lse, scratch, B, N, H, RelBias{}, stream);
 }
 
 extern "C" int vit_attention_backward(const float* qkv, const float* out, const float* lse,
                                       const float* dout, float* dqkv, void* scratch, int B,
                                       int N, int H, cudaStream_t stream) {
-  return backward(qkv, out, lse, dout, dqkv, scratch, B, N, H, RelBias{}, stream);
+  return backward_t<64, kPlain>(qkv, out, lse, dout, dqkv, scratch, B, N, H, RelBias{}, stream);
 }
 
-// With the relative-position bias of a wh x ww grid: table (H, R) float32
-// with R = (2 wh - 1)(2 ww - 1) + 3 <= vit_attention_max_table(), pos
-// (vit_attention_pos_length(N) int32, see the note); the backward adds the
-// table's gradient into dtable (H, R), which the caller zeroes.
-namespace {
-
-// The bias of a wh x ww grid (N = 1 + wh ww), or an invalid R.
-RelBias grid_bias(const float* table, const int* pos, float* dtable, int N, int wh, int ww) {
-  const int R = (2 * wh - 1) * (2 * ww - 1) + 3;
-  const bool ok = wh >= 0 && ww >= 0 && N == 1 + wh * ww && R <= kMaxTable;
-  const int copy = ok ? dq_bias_copy(N, wh, ww) : 0;
-  return {table, pos, dtable, ok && copy <= kMaxCopy ? R : -1, (wh - 1) * (2 * ww - 1) + ww - 1,
-          ww, copy};
-}
-
-}  // namespace
-
-extern "C" int vit_attention_forward_bias(const float* qkv, const float* table, const int* pos,
-                                          float* out, float* lse, void* scratch, int B, int N,
-                                          int H, int wh, int ww, cudaStream_t stream) {
-  const RelBias rb = grid_bias(table, pos, nullptr, N, wh, ww);
+// With the relative-position bias of a wh x ww grid at head width D: 64
+// with a class token (cls 1, BEiT), or 32 without (cls 0: Swin V2's
+// windows of wh x ww tokens, the frames B the windows of every image in
+// order, scores at scale 1). table (H, R) float32 with R = (2 wh - 1)
+// (2 ww - 1) + 3 cls (at most vit_attention_max_table() at 64), pos
+// (vit_attention_pos_length(N) int32, see the note); the shift mask where
+// region is not null: (nW, vit_attention_pos_length(N)) int32 region
+// codes, window b taking row b mod nW. The backward adds the table's
+// gradient into dtable (H, R), which the caller zeroes.
+extern "C" int vit_attention_forward_biased(const float* qkv, const float* table, const int* pos,
+                                            const int* region, float* out, float* lse,
+                                            void* scratch, int B, int N, int H, int D, int wh,
+                                            int ww, int cls, int nW, cudaStream_t stream) {
+  const RelBias rb = grid_bias(table, pos, region, nullptr, N, D, wh, ww, cls, nW);
   if (rb.R < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return forward(qkv, out, lse, scratch, B, N, H, rb, stream);
+  if (D == 64) return forward_t<64, kBias>(qkv, out, lse, scratch, B, N, H, rb, stream);
+  if (region) return forward_t<32, kWindowMask>(qkv, out, lse, scratch, B, N, H, rb, stream);
+  return forward_t<32, kWindow>(qkv, out, lse, scratch, B, N, H, rb, stream);
 }
 
-extern "C" int vit_attention_backward_bias(const float* qkv, const float* table, const int* pos,
-                                           const float* out, const float* lse, const float* dout,
-                                           float* dqkv, float* dtable, void* scratch, int B,
-                                           int N, int H, int wh, int ww, cudaStream_t stream) {
-  const RelBias rb = grid_bias(table, pos, dtable, N, wh, ww);
+extern "C" int vit_attention_backward_biased(const float* qkv, const float* table,
+                                             const int* pos, const int* region, const float* out,
+                                             const float* lse, const float* dout, float* dqkv,
+                                             float* dtable, void* scratch, int B, int N, int H,
+                                             int D, int wh, int ww, int cls, int nW,
+                                             cudaStream_t stream) {
+  const RelBias rb = grid_bias(table, pos, region, dtable, N, D, wh, ww, cls, nW);
   if (rb.R < 0) return static_cast<int>(cudaErrorInvalidValue);
-  return backward(qkv, out, lse, dout, dqkv, scratch, B, N, H, rb, stream);
+  if (D == 64)
+    return backward_t<64, kBias>(qkv, out, lse, dout, dqkv, scratch, B, N, H, rb, stream);
+  if (region)
+    return backward_t<32, kWindowMask>(qkv, out, lse, dout, dqkv, scratch, B, N, H, rb, stream);
+  return backward_t<32, kWindow>(qkv, out, lse, dout, dqkv, scratch, B, N, H, rb, stream);
 }
 
 // Registers a thread, local (spill) bytes a thread and shared bytes a block
 // (static plus dynamic) of kernel `which`: 0 fwd_prep, 1 fwd, 2 bwd_prep,
 // 3 bwd_dkdv, 4 bwd_dq, 5 fwd_bias, 6 bwd_dkdv_bias, 7 bwd_dq_bias (its
 // ring and the warpgroups' stages; a grid adds its two copies of dT, 8
-// vit_attention_dq_bias_copy bytes).
+// vit_attention_dq_bias_copy_cls bytes); at head width 32: 8 fwd_prep32,
+// 9 bwd_prep32, 10 fwd_window, 11 bwd_dkdv_window, 12 bwd_dq_window,
+// 13 fwd_window_mask, 14 bwd_dkdv_window_mask, 15 bwd_dq_window_mask.
 extern "C" int vit_attention_kernel_info(int which, int* regs, int* local, int* smem) {
   const void* fns[] = {reinterpret_cast<const void*>(flash_attention_fwd_prep),
                        reinterpret_cast<const void*>(flash_attention_fwd),
@@ -1493,10 +1743,22 @@ extern "C" int vit_attention_kernel_info(int which, int* regs, int* local, int* 
                        reinterpret_cast<const void*>(flash_attention_bwd_dq),
                        reinterpret_cast<const void*>(flash_attention_fwd_bias),
                        reinterpret_cast<const void*>(flash_attention_bwd_dkdv_bias),
-                       reinterpret_cast<const void*>(flash_attention_bwd_dq_bias)};
-  const int dyn[] = {0, kFwdSmem, 0, kDkvSmem, kDqSmem, kFwdSmem, kDkvSmem,
-                     kDqBiasRingSmem + kDtStageBytes + kRunBytes};
-  if (which < 0 || which > 7) return static_cast<int>(cudaErrorInvalidValue);
+                       reinterpret_cast<const void*>(flash_attention_bwd_dq_bias),
+                       reinterpret_cast<const void*>(flash_attention_fwd_prep32),
+                       reinterpret_cast<const void*>(flash_attention_bwd_prep32),
+                       reinterpret_cast<const void*>(flash_attention_fwd_window),
+                       reinterpret_cast<const void*>(flash_attention_bwd_dkdv_window),
+                       reinterpret_cast<const void*>(flash_attention_bwd_dq_window),
+                       reinterpret_cast<const void*>(flash_attention_fwd_window_mask),
+                       reinterpret_cast<const void*>(flash_attention_bwd_dkdv_window_mask),
+                       reinterpret_cast<const void*>(flash_attention_bwd_dq_window_mask)};
+  using G = Geo<64>;
+  using W = Geo<32>;
+  const int w_dq = W::kDqBiasRingSmem + kDtStageBytes + kRunBytes;
+  const int dyn[] = {0, G::kFwdSmem, 0, G::kDkvSmem, G::kDqSmem, G::kFwdSmem, G::kDkvSmem,
+                     G::kDqBiasRingSmem + kDtStageBytes + kRunBytes,
+                     0, 0, W::kFwdSmem, W::kDkvSmem, w_dq, W::kFwdSmem, W::kDkvSmem, w_dq};
+  if (which < 0 || which > 15) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes a;
   if (cudaError_t err = cudaFuncGetAttributes(&a, fns[which])) return static_cast<int>(err);
   *regs = a.numRegs;

@@ -35,8 +35,14 @@ The net has no BatchNorm, so the fine-tune's batch-statistics contexts
 leave it alone. Its adapter runs the net's float32 matrix products in TF32
 where TF32 is allowed (`matmul_tf32`); the plain references in float32.
 
-The reassembly and the decoder take any encoder of the same width (the
-`encoder` argument of DPTDepthNet): models/beit.py puts BEiT-L under them.
+The decoder (`DPT`) takes its backbone as MiDaS's `pretrained` module: the
+four maps and the resizes of the frame in and of the disparity out.
+`ViTBackbone` is the ViT encoder and its reassembly, the frame at its own
+size; it takes any encoder of the same width (the `encoder` argument of
+DPTDepthNet): models/beit.py puts BEiT-L under it. models/swin2.py puts
+SwinV2-L's stage maps under the decoder with no reassembly. The four depth
+models are MiDaS v2 (models/midas.py), DPT-Large, BEiT-L/16-512 and
+SwinV2-L/24-384.
 
 Spans (utils/spans.py): `dpt.embed`, `dpt.encoder` (attrs `tokens` a
 frame and `frames`), `dpt.reassemble` and `dpt.decoder` (fusion and head).
@@ -170,7 +176,7 @@ class ProjectReadout(nn.Module):
 def _reassemble(dim: int, width: int, level: int) -> nn.Sequential:
     """dpt/vit.py's act_postprocess<level>: the readout, the reference's
     Transpose and Unflatten (no weights; here the grid is laid out in
-    DPTDepthNet.forward), a 1x1 convolution to `width`, then the resampling
+    ViTBackbone.maps), a 1x1 convolution to `width`, then the resampling
     to 1/4, 1/8, 1/16 or 1/32 of the frame."""
     mods = [ProjectReadout(dim), nn.Identity(), nn.Identity(), nn.Conv2d(dim, width, 1)]
     if level == 1:
@@ -187,32 +193,67 @@ def normalize_images(images: torch.Tensor) -> torch.Tensor:
     return (images - 0.5) / 0.5
 
 
-class DPTDepthNet(nn.Module):
-    """DPT: (B, 3, H, W) normalised RGB -> (B, H, W) disparity. H and W must
-    be multiples of the patch. The defaults are DPT-Large's published
-    widths; smaller ones give the same structure for tests. `normalize` is
-    the input normalisation its weights were trained with.
+class ViTBackbone(nn.Module):
+    """MiDaS's `pretrained` for a plain ViT encoder: `model`, the encoder of
+    width `hidden` with a `patch` and `hooked(x, hooks)`, the tokens after
+    each hooked block (DPT-Large's VisionTransformer, models/beit.py::
+    BeitEncoder), and `act_postprocess1..4`, the reassembly of those tokens
+    into maps of `widths` channels at 1/4 to 1/32 of the frame. It takes the
+    frame at its own size (sides multiples of the patch), so `squash` and
+    `restore` leave it as it is."""
 
-    `encoder` (at `pretrained.model`) is DPT-Large's VisionTransformer of
-    these widths, or another module of width `hidden` with a `patch` and
-    `hooked(x, hooks)`, the tokens after each hooked block (BEiT,
-    models/beit.py); the reassembly and the decoder are the same."""
+    def __init__(self, model: nn.Module, hidden: int,
+                 widths: Sequence[int] = (256, 512, 1024, 1024)):
+        super().__init__()
+        self.model = model
+        self.widths = tuple(widths)
+        for level, width in enumerate(widths, 1):
+            setattr(self, f"act_postprocess{level}", _reassemble(hidden, width, level))
+
+    def squash(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def restore(self, d: torch.Tensor, size) -> torch.Tensor:
+        return d
+
+    def maps(self, x: torch.Tensor, hooks: Sequence[int]) -> list:
+        """The four reassembled maps (B, widths[l], h, w) of the frame x."""
+        b, _, h, w = x.shape
+        patch = self.model.patch
+        if h % patch or w % patch:
+            raise ValueError(f"DPT needs sides that are multiples of {patch}, got {h}x{w}")
+        gh, gw = h // patch, w // patch
+        hooked = self.model.hooked(x, hooks)
+        with span("dpt.reassemble"):
+            layers = []
+            for level, t in enumerate(hooked, 1):
+                post = getattr(self, f"act_postprocess{level}")
+                y = post[0](t)
+                y = y.transpose(1, 2).reshape(b, y.shape[-1], gh, gw)
+                for m in post[3:]:
+                    y = m(y)
+                layers.append(y)
+        return layers
+
+
+class DPT(nn.Module):
+    """DPT's decoder on a backbone: (B, 3, H, W) normalised RGB -> (B, H, W)
+    disparity. `pretrained` is MiDaS's backbone module: `widths`, the
+    channels of the four maps that `maps(x, hooks)` returns at 1/4 to 1/32
+    of its input, and `squash` and `restore`, the resizes of the frame to
+    that input and of the disparity back to the frame's size (ViTBackbone,
+    or models/swin2.py::Swin2Backbone, whose stage maps need no
+    reassembly). `normalize` is the input normalisation its weights were
+    trained with."""
 
     normalize = staticmethod(normalize_images)
 
-    def __init__(self, hidden: int = 1024, heads: int = 16, blocks: int = 24, mlp: int = 4096,
-                 patch: int = 16, pos_grid: int = 24, hooks: Sequence[int] = (5, 11, 17, 23),
-                 widths: Sequence[int] = (256, 512, 1024, 1024), features: int = 256,
-                 classes: int = 1000, encoder: nn.Module | None = None):
+    def __init__(self, pretrained: nn.Module, hooks: Sequence[int], features: int = 256):
         super().__init__()
         self.hooks = tuple(hooks)
-        self.pretrained = nn.Module()
-        self.pretrained.model = encoder if encoder is not None else VisionTransformer(
-            hidden, heads, blocks, mlp, patch, pos_grid, classes)
-        for level, width in enumerate(widths, 1):
-            setattr(self.pretrained, f"act_postprocess{level}", _reassemble(hidden, width, level))
+        self.pretrained = pretrained
         self.scratch = nn.Module()
-        for k, cin in enumerate(widths, 1):
+        for k, cin in enumerate(pretrained.widths, 1):
             setattr(self.scratch, f"layer{k}_rn",
                     nn.Conv2d(cin, features, 3, padding=1, bias=False))
         for k in range(1, 5):
@@ -221,21 +262,12 @@ class DPTDepthNet(nn.Module):
         self.scratch.output_conv = output_head(features, features // 2, align_corners=True)
 
     def forward(self, x):
-        b, _, h, w = x.shape
-        vit, p, s = self.pretrained.model, self.pretrained, self.scratch
-        if h % vit.patch or w % vit.patch:
-            raise ValueError(f"DPT needs sides that are multiples of {vit.patch}, got {h}x{w}")
-        gh, gw = h // vit.patch, w // vit.patch
-        hooked = vit.hooked(x, self.hooks)
-        with span("dpt.reassemble"):
-            layers = []
-            for level, t in enumerate(hooked, 1):
-                post = getattr(p, f"act_postprocess{level}")
-                y = post[0](t)
-                y = y.transpose(1, 2).reshape(b, y.shape[-1], gh, gw)
-                for m in post[3:]:
-                    y = m(y)
-                layers.append(y)
+        p = self.pretrained
+        return p.restore(self.decode(p.maps(p.squash(x), self.hooks)), x.shape[-2:])
+
+    def decode(self, layers):
+        """The scratch convolutions, fusion and head on the four maps."""
+        s = self.scratch
         with span("dpt.decoder"):
             l1, l2, l3, l4 = (getattr(s, f"layer{k}_rn")(y) for k, y in enumerate(layers, 1))
             p4 = s.refinenet4(l4)
@@ -243,6 +275,23 @@ class DPTDepthNet(nn.Module):
             p2 = s.refinenet2(p3, l2)
             p1 = s.refinenet1(p2, l1)
             return s.output_conv(p1)[:, 0]
+
+
+class DPTDepthNet(DPT):
+    """DPT on a plain ViT encoder: H and W must be multiples of the patch.
+    The defaults are DPT-Large's published widths; smaller ones give the
+    same structure for tests. `encoder` (at `pretrained.model`) is
+    DPT-Large's VisionTransformer of these widths, or another encoder of
+    width `hidden` (BEiT, models/beit.py); the reassembly and the decoder
+    are the same."""
+
+    def __init__(self, hidden: int = 1024, heads: int = 16, blocks: int = 24, mlp: int = 4096,
+                 patch: int = 16, pos_grid: int = 24, hooks: Sequence[int] = (5, 11, 17, 23),
+                 widths: Sequence[int] = (256, 512, 1024, 1024), features: int = 256,
+                 classes: int = 1000, encoder: nn.Module | None = None):
+        model = encoder if encoder is not None else VisionTransformer(
+            hidden, heads, blocks, mlp, patch, pos_grid, classes)
+        super().__init__(ViTBackbone(model, hidden, widths), hooks, features)
 
 
 class DPTLargeAdapter(DepthModel):

@@ -47,6 +47,19 @@ On the card (marked `cuda`, skipped without one; this file imports no JAX):
   leaves the counters without a bias alone; two backward calls give dq,
   dk and dv bit for bit; the kernels' copy of the window is the Python
   rule's.
+
+Swin V2's window form (ops/attention.py::window_attention), on the CPU: the
+checkers refuse a head width other than 32, a token count that is not the
+window's, a table with class entries and region codes of the wrong shape;
+a CPU call takes the plain window form (the gradient reaching the table,
+the mask moving the output, the index Swin's) and launches nothing; the
+dq pass's window rule without a class token holds every index of a block.
+On the card: the window kernels against float64 at chip_smoke.
+WINDOW_CHECKS and stage 0's shifted shape (out, dq, dk, dv, dT within
+twice SDPA's float32 error with the bias and mask in a float32 mask), dq,
+dk and dv bit for bit over two backward calls, and one train step of a
+Swin V2 of head width 32 advancing `.window_launches` and
+`.window_backward_launches` by its 8 blocks.
 """
 
 import numpy as np
@@ -270,13 +283,19 @@ def test_the_bias_backward_gives_dq_dk_dv_bit_for_bit(b, grid, h):
 @pytest.mark.cuda
 def test_the_kernels_window_is_the_plain_rule():
     """The dq pass's copy of dT holds the longest window of
-    attention.dt_windows (the C side computes it apart); the checks' largest
+    attention.dt_windows (the C side computes it apart), with a class token
+    and, at Swin V2's windows, without; the checks' largest
     grid is the widest of its height whose table the kernels take, past the
     12,224 entries they took before."""
     _card()
     lib = attention._library()
     for _, grid, _ in chip_smoke.ATTENTION_BIAS_CHECKS + (chip_smoke.ATTENTION_BIAS_SHAPE,):
-        assert lib.vit_attention_dq_bias_copy(*grid) == attention.dq_bias_copy(grid), grid
+        assert lib.vit_attention_dq_bias_copy_cls(*grid, 1) == attention.dq_bias_copy(
+            grid), grid
+    # Swin V2's windows, without a class token
+    for _, w, _, _, _ in chip_smoke.WINDOW_CHECKS + (chip_smoke.WINDOW_STAGE2,):
+        assert lib.vit_attention_dq_bias_copy_cls(w, w, 0) == attention.dq_bias_copy(
+            (w, w), cls=False), w
     wh, ww = chip_smoke.ATTENTION_BIAS_MAX_GRID
     top = lib.vit_attention_max_table()
     assert 12224 < (2 * wh - 1) * (2 * ww - 1) + 3 <= top < (2 * wh - 1) * (2 * ww + 1) + 3
@@ -358,3 +377,122 @@ def test_a_window_is_at_most_three_quarters_of_the_table():
             r = (2 * wh - 1) * (2 * ww - 1) + 3
             longest = max(hi - lo + 1 for lo, hi in filter(None, attention.dt_windows((wh, ww))))
             assert longest <= 0.75 * (r - 3) + 128, (wh, ww)
+
+
+# Swin V2's windows (models/swin2.py): head width 32, no class token, the
+# scores at scale 1, the shift mask from region codes.
+
+
+@pytest.mark.parametrize("shape, table_shape, region_shape, why", [
+    ((4, 16, 3, 2, 64), (2, 49), None, "head width 64"),
+    ((4, 17, 3, 2, 32), (2, 49), None, "tokens not the window's"),
+    ((4, 16, 3, 2, 32), (2, 52), None, "a class token's table"),
+    ((4, 16, 3, 2, 32), (2, 49), (3, 16), "windows not dividing the frames"),
+    ((4, 16, 3, 2, 32), (2, 49), (2, 9), "codes of another window"),
+])
+def test_the_window_checkers_refuse(shape, table_shape, region_shape, why):
+    qkv = torch.zeros(shape)
+    table = torch.zeros(table_shape)
+
+    def check(qkv, table, region):
+        attention.check_kernel_input(qkv, attention.WINDOW_HEAD_WIDTH)
+        attention.check_bias_input(qkv, table, (4, 4), cls=False)
+        if region is not None:
+            attention.check_region_input(qkv, region)
+
+    check(torch.zeros((4, 16, 3, 2, 32)), torch.zeros((2, 49)),
+          torch.zeros((2, 16), dtype=torch.int32))
+    region = None if region_shape is None else torch.zeros(region_shape, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        check(qkv, table, region)
+
+
+def test_a_cpu_window_input_takes_the_plain_version():
+    """Without a class token the index is Swin's (no class entries); the
+    gradient reaches the table; the mask moves the output; no kernel is
+    launched."""
+    from robust_cvd_tpu_torch.models import swin2
+
+    w = 4
+    qkv = _qkv(8, w * w, 2, 32, seed=3)
+    table = torch.randn((2, (2 * w - 1) ** 2), generator=torch.Generator().manual_seed(1))
+    region = swin2.region_codes(8, w, 2)
+    va = attention.vit_attention
+    before = (va.window_launches, va.window_backward_launches)
+    t = table.clone().requires_grad_(True)
+    out = attention.window_attention(qkv, t, (w, w), region)
+    out.square().sum().backward()
+    assert torch.equal(out, attention.attention_plain(qkv, table, (w, w), region, window=True))
+    assert t.grad is not None and t.grad.abs().max() > 0
+    assert (attention.attention_plain(qkv, table, (w, w), window=True) - out).abs().max() > 0.1
+    idx = attention.relative_position_index((w, w), cls=False)
+    assert idx.shape == (w * w, w * w) and idx.max() == (2 * w - 1) ** 2 - 1
+    assert torch.equal(idx, attention.relative_position_index((w, w))[1:, 1:])
+    assert (va.window_launches, va.window_backward_launches) == before
+
+
+@pytest.mark.parametrize("grid", [(24, 24), (12, 12), (4, 4), (7, 13)])
+def test_every_index_of_a_window_block_lies_in_its_window(grid):
+    """Without a class token the dq pass's window rule holds every index of
+    a block's rows."""
+    idx = attention.relative_position_index(grid, cls=False)
+    windows = attention.dt_windows(grid, cls=False)
+    assert len(windows) == -(-idx.shape[0] // attention.ROWS_PER_CTA)
+    for k, (lo, hi) in enumerate(windows):
+        block = idx[k * attention.ROWS_PER_CTA:(k + 1) * attention.ROWS_PER_CTA]
+        assert lo == block.min().item() and block.max().item() == hi
+    longest = max(hi - lo + 1 for lo, hi in windows)
+    assert attention.dq_bias_copy(grid, cls=False) == (longest + 6) // 4 * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", chip_smoke.WINDOW_CHECKS + (chip_smoke.WINDOW_STAGE0,))
+def test_window_kernels_match_float64_within_twice_sdpas_error(shape):
+    """out, dq, dk, dv and dT at their largest over three inputs, within
+    twice SDPA's error with the bias and mask in a float32 mask
+    (chip_smoke.window_attention_errors_max, window_error_limit)."""
+    _card()
+    errs = chip_smoke.window_attention_errors_max(*shape)
+    print(shape, errs)
+    for k, v in errs["kernel"].items():
+        assert v <= chip_smoke.window_error_limit(errs, k), (k, v, errs["sdpa"][k])
+
+
+@pytest.mark.cuda
+def test_the_window_backward_gives_dq_dk_dv_bit_for_bit():
+    _card()
+    qkv, table, region, dout = chip_smoke._window_inputs(16, 24, 2, 16, True, seed=4)
+    out, lse = attention.forward_bias_kernel(qkv, table, (24, 24), region, cls=False)
+    first = attention.backward_bias_kernel(qkv, table, (24, 24), out, lse, dout, region,
+                                           cls=False)
+    second = attention.backward_bias_kernel(qkv, table, (24, 24), out, lse, dout, region,
+                                            cls=False)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert (first[1] - second[1]).abs().max() <= 1e-5 * first[1].abs().max()
+
+
+@pytest.mark.cuda
+def test_a_swin2_train_step_runs_the_window_kernels_in_every_block():
+    """A Swin V2 of head width 32 throughout (embed 32, one head a stage
+    width's 32): each of its 8 blocks runs the window kernels once forward
+    and once backward, the shifted ones with the mask; the other counters
+    stay."""
+    _card()
+    import test_torch_pkg_dpt as tdpt
+
+    from robust_cvd_tpu_torch.models import swin2
+
+    net = swin2.Swin2DepthNet(image=64, patch=4, embed=32, depths=(2, 2, 2, 2),
+                              heads=(1, 2, 4, 8), window=4, pretrained_windows=(3, 3, 3, 2),
+                              hooks=(1, 1, 1, 1), features=32, classes=10)
+    tuner, _ = tdpt._tuner(dtype=torch.float32, adapter=swin2.DPTSwin2LargeAdapter(net),
+                           device="cuda")
+    va = attention.vit_attention
+    names = ("launches", "backward_launches", "bias_launches", "bias_backward_launches",
+             "window_launches", "window_backward_launches")
+    before = [getattr(va, k) for k in names]
+    loss, _, ok = tuner.train_step(torch.tensor([0, 2], device="cuda"))
+    torch.cuda.synchronize()
+    assert bool(ok) and torch.isfinite(loss)
+    assert [getattr(va, k) - b for k, b in zip(names, before)] == [0, 0, 0, 0, 8, 8]

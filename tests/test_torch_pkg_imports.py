@@ -6,8 +6,8 @@
   package on purpose, to measure the reference.
 - The training and pipeline layers reach the depth models only through
   the model-neutral modules (models/depth_model.py, models/layers.py, the
-  registry), and neither DPT nor BEiT takes anything from MiDaS v2's
-  module.
+  registry), and neither DPT, BEiT nor Swin V2 takes anything from MiDaS
+  v2's module.
 - The copied configuration keeps the JAX package's defaults, and the copied
   writers produce byte-identical files.
 - Entry points raise without CUDA unless the caller asks for the CPU, and a
@@ -110,11 +110,13 @@ def test_depth_model_layer_is_model_neutral():
         for root, _, names in os.walk(os.path.join(PKG_DIR, sub)):
             for f in (os.path.join(root, n) for n in names if n.endswith(".py")):
                 bad += [(f, m) for m in _absolute_imports(f)
-                        if m.startswith((models + "midas", models + "dpt", models + "beit"))]
+                        if m.startswith((models + "midas", models + "dpt", models + "beit",
+                                         models + "swin2"))]
     dpt = os.path.join(PKG_DIR, "models", "dpt.py")
     bad += [(dpt, m) for m in _absolute_imports(dpt) if m.startswith(models + "midas")]
-    beit = os.path.join(PKG_DIR, "models", "beit.py")
-    bad += [(beit, m) for m in _absolute_imports(beit) if m.startswith(models + "midas")]
+    for name in ("beit.py", "swin2.py"):
+        path = os.path.join(PKG_DIR, "models", name)
+        bad += [(path, m) for m in _absolute_imports(path) if m.startswith(models + "midas")]
     assert not bad
     # the relative imports are seen: the train step's forward and BatchNorm
     seen = set(_absolute_imports(os.path.join(PKG_DIR, "training", "fine_tune.py")))

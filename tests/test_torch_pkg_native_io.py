@@ -8,7 +8,8 @@ a truncated file raises IOError; VideoStore loads color_down and depth
 streams, and writes depth streams, through the engine, byte for byte the
 JAX package's files. Beside them: a failed build of the engine raises, and
 registry.get_depth_model("midas2") is the port's MidasV2Adapter (beside
-the port's own `dpt_large` and `dpt_beit_large_512`), whose
+the port's own `dpt_large`, `dpt_beit_large_512` and `dpt_swin2_large_384`),
+whose
 estimate_depth matches the JAX adapter's on the small MiDaS of
 tests/test_torch_pkg_midas.py (1e-3 relative where the disparity is not
 clipped, as there).
@@ -133,7 +134,8 @@ def test_io_engine_build_failure_raises(monkeypatch, tmp_path):
 def test_registry_gives_the_port_adapter(small_nets):  # noqa: F811
     assert registry.get_depth_model("midas2") is tm.MidasV2Adapter
     # the port registers DPT-Large (models/dpt.py) beside the reference's midas2
-    assert registry.get_depth_model_list() == ["dpt_beit_large_512", "dpt_large", "midas2"]
+    assert registry.get_depth_model_list() == ["dpt_beit_large_512", "dpt_large",
+                                               "dpt_swin2_large_384", "midas2"]
     with pytest.raises(KeyError, match="midas2"):
         registry.get_depth_model("dpt")
 
@@ -144,7 +146,7 @@ def test_registry_gives_the_port_adapter(small_nets):  # noqa: F811
     try:
         assert registry.get_depth_model("custom") is Custom
         assert registry.get_depth_model_list() == ["custom", "dpt_beit_large_512", "dpt_large",
-                                                    "midas2"]
+                                                    "dpt_swin2_large_384", "midas2"]
     finally:
         registry._REGISTRY.pop("custom")
 

@@ -72,8 +72,32 @@ def build(sources: dict) -> dict:
                               r"(\d+) bytes spill loads", m.group(2))
             lines.append(f"{kernel}: {m.group(3)} registers, {m.group(4) or 0} B static smem, "
                          f"stack/spill st/ld {spill.groups() if spill else '?'}")
-        libs[name] = (attention.bind_library(ctypes.CDLL(so)), "\n  ".join(lines))
+        libs[name] = (bind(ctypes.CDLL(so)), "\n  ".join(lines))
     return libs
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """attention.bind_library, and the bias entries of a build from before
+    the windows of head width 32 (vit_attention_scratch_bytes,
+    vit_attention_forward_bias and _backward_bias, a class token and head
+    width 64 only), which the port's source no longer has."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, args, res in (("vit_attention_scratch_bytes", [i32] * 4, ctypes.c_longlong),
+                            ("vit_attention_forward_bias", [ptr] * 6 + [i32] * 5 + [ptr], i32),
+                            ("vit_attention_backward_bias", [ptr] * 9 + [i32] * 5 + [ptr], i32)):
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = args, res
+    return attention.bind_library(lib)
+
+
+def scratch_bytes(lib, b: int, n: int, h: int, backward: int) -> int:
+    """Scratch bytes of a call at head width 64, by whichever entry the
+    build has."""
+    width = getattr(lib, "vit_attention_scratch_bytes_width", None)
+    if width is not None:
+        return width(b, n, h, 64, backward)
+    return lib.vit_attention_scratch_bytes(b, n, h, backward)
 
 
 def pos_for(lib, grid) -> torch.Tensor:
@@ -98,23 +122,36 @@ class BiasCall:
         self.lse = torch.empty((b * h, lib.vit_attention_lse_stride(self.n)), device="cuda")
         self.dqkv = torch.empty_like(self.qkv)
         self.dtable = torch.zeros_like(self.table)
-        self.fs, self.bs = (torch.empty(lib.vit_attention_scratch_bytes(b, self.n, h, back),
+        self.fs, self.bs = (torch.empty(scratch_bytes(lib, b, self.n, h, back),
                                         dtype=torch.uint8, device="cuda") for back in (0, 1))
         self.stream = torch.cuda.current_stream().cuda_stream
+        # the entries taking the head width, the class token and the
+        # windows' region codes, where the build has them
+        self.biased = getattr(lib, "vit_attention_forward_biased", None) is not None
 
     def forward(self):
-        attention._raise(self.lib.vit_attention_forward_bias(
-            self.qkv.data_ptr(), self.table.data_ptr(), self.pos.data_ptr(), self.out.data_ptr(),
-            self.lse.data_ptr(), self.fs.data_ptr(), self.b, self.n, self.h, *self.grid,
-            self.stream), "forward (bias)")
+        ptrs = (self.qkv.data_ptr(), self.table.data_ptr(), self.pos.data_ptr())
+        rest = (self.out.data_ptr(), self.lse.data_ptr(), self.fs.data_ptr(), self.b, self.n,
+                self.h)
+        if self.biased:
+            err = self.lib.vit_attention_forward_biased(*ptrs, None, *rest, 64, *self.grid, 1, 1,
+                                                        self.stream)
+        else:
+            err = self.lib.vit_attention_forward_bias(*ptrs, *rest, *self.grid, self.stream)
+        attention._raise(err, "forward (bias)")
 
     def backward(self):
         self.dtable.zero_()
-        attention._raise(self.lib.vit_attention_backward_bias(
-            self.qkv.data_ptr(), self.table.data_ptr(), self.pos.data_ptr(), self.out.data_ptr(),
-            self.lse.data_ptr(), self.dout.data_ptr(), self.dqkv.data_ptr(),
-            self.dtable.data_ptr(), self.bs.data_ptr(), self.b, self.n, self.h, *self.grid,
-            self.stream), "backward (bias)")
+        ptrs = (self.qkv.data_ptr(), self.table.data_ptr(), self.pos.data_ptr())
+        rest = (self.out.data_ptr(), self.lse.data_ptr(), self.dout.data_ptr(),
+                self.dqkv.data_ptr(), self.dtable.data_ptr(), self.bs.data_ptr(), self.b, self.n,
+                self.h)
+        if self.biased:
+            err = self.lib.vit_attention_backward_biased(*ptrs, None, *rest, 64, *self.grid, 1, 1,
+                                                         self.stream)
+        else:
+            err = self.lib.vit_attention_backward_bias(*ptrs, *rest, *self.grid, self.stream)
+        attention._raise(err, "backward (bias)")
 
 
 def errors(lib, b, grid, h, seed) -> dict:
@@ -154,8 +191,8 @@ def no_bias_ms(lib, seed: int) -> float:
     g = torch.Generator(device="cuda").manual_seed(seed)
     sets = [dict(qkv=torch.randn((b, n, 3, h, 64), generator=g, device="cuda"),
                  dout=torch.randn((b, n, h, 64), generator=g, device="cuda")) for _ in range(2)]
-    fs, bs = (torch.empty(lib.vit_attention_scratch_bytes(b, n, h, back), dtype=torch.uint8,
-                          device="cuda") for back in (0, 1))
+    fs, bs = (torch.empty(scratch_bytes(lib, b, n, h, back), dtype=torch.uint8, device="cuda")
+              for back in (0, 1))
     stream = torch.cuda.current_stream().cuda_stream
     for t in sets:
         t["out"] = torch.empty((b, n, h, 64), device="cuda")
